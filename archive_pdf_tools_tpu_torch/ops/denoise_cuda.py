@@ -1,0 +1,54 @@
+"""Exact mask despeckle: wrapper of the hand-written CUDA kernel
+``csrc/despeckle.cu`` (the port of ``ops/denoise_pallas.py``).
+
+A CPU tensor runs the plain PyTorch version (``ops/denoise.py``); a CUDA
+tensor launches the kernel or raises.  ``fast_mask_denoise.launches``
+counts the kernel launches.
+"""
+
+import ctypes
+
+import torch
+
+from ..utils import cudabuild
+from .denoise import fast_mask_denoise_exact
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {'apt_despeckle': [_P, _P, _I, _I, _I, _I, _P]}
+
+MAX_WIDTH = 227 * 1024          # one transition-map byte per column
+
+
+def fast_mask_denoise(mask, mincnt=4, n_size=2):
+    """Exact sequential despeckle of a bool (B, H, W) mask (reference
+    call ``mrc.py:388`` uses mincnt=4, n_size=2)."""
+    if mask.dtype != torch.bool or mask.dim() != 3:
+        raise TypeError('fast_mask_denoise: need a bool (B, H, W) mask, '
+                        'got %s %s' % (mask.dtype, tuple(mask.shape)))
+    if mask.device.type == 'cpu':
+        return fast_mask_denoise_exact(mask, mincnt, n_size)
+    if mask.device.type != 'cuda':
+        raise ValueError('fast_mask_denoise: unsupported device %s'
+                         % mask.device)
+    if n_size != 2:
+        raise ValueError('fast_mask_denoise: the CUDA kernel implements '
+                         'n_size=2, got %d' % n_size)
+    if not mask.is_contiguous():
+        raise ValueError('fast_mask_denoise: mask must be contiguous')
+    b, h, w = mask.shape
+    if w > MAX_WIDTH:
+        raise ValueError('fast_mask_denoise: width %d exceeds the kernel '
+                         'limit %d' % (w, MAX_WIDTH))
+    lib = cudabuild.load('despeckle', _SIGNATURES)
+    out = torch.empty_like(mask)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        err = lib.apt_despeckle(mask.data_ptr(), out.data_ptr(), b, h, w,
+                                int(mincnt), stream)
+    cudabuild.check(err, 'fast_mask_denoise')
+    fast_mask_denoise.launches += 1
+    return out
+
+
+fast_mask_denoise.launches = 0

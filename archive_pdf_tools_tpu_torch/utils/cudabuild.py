@@ -1,0 +1,114 @@
+"""Build the hand-written CUDA kernels (``csrc/*.cu``) at first use.
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds, not minutes).  Builds go to ``build/`` beside the
+package (git-ignored), are written to a unique temp file and published
+with an atomic ``os.replace``, and are serialised by a per-path thread
+lock plus an ``fcntl`` file lock, like ``archive_pdf_tools_tpu``'s
+``utils/nativebuild.py``.
+
+``-fmad=false`` keeps every float multiply and add separately rounded,
+so the kernels reproduce the plain PyTorch versions bit for bit.
+
+Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+"""
+
+import ctypes
+import fcntl
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(_PKG, 'build')
+
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-fmad=false', '-Xptxas', '-v', '-shared',
+              '-Xcompiler', '-fPIC']
+
+# name -> {'seconds': build wall time (0.0 when already built),
+#          'log': nvcc/ptxas output}; read by chip_smoke.py
+BUILD_INFO = {}
+
+_libs = {}
+_guard = threading.Lock()
+_path_locks = {}
+
+
+def _nvcc():
+    cand = [os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                         'bin', 'nvcc'), shutil.which('nvcc')]
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError('nvcc not found (set CUDA_HOME); the CUDA kernels '
+                       'are built from csrc/ at first use')
+
+
+def _stale(so_path, src):
+    return (not os.path.exists(so_path)
+            or os.path.getmtime(so_path) < os.path.getmtime(src))
+
+
+def _build(name, src, so_path):
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _guard:
+        lock = _path_locks.setdefault(so_path, threading.Lock())
+    with lock, open(so_path + '.lock', 'w') as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        try:
+            if not _stale(so_path, src):      # built while we waited
+                BUILD_INFO.setdefault(name, {'seconds': 0.0, 'log': ''})
+                return
+            tmp = '%s.tmp.%d' % (so_path, os.getpid())
+            t0 = time.time()
+            try:
+                res = subprocess.run([_nvcc()] + NVCC_FLAGS
+                                     + ['-o', tmp, src],
+                                     capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError('nvcc failed for %s:\n%s%s'
+                                       % (src, res.stdout, res.stderr))
+                os.replace(tmp, so_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            BUILD_INFO[name] = {'seconds': time.time() - t0,
+                                'log': res.stdout + res.stderr}
+        finally:
+            fcntl.flock(lk, fcntl.LOCK_UN)
+
+
+def load(name, signatures):
+    """Build (if needed) and load ``csrc/<name>.cu``.
+
+    signatures: {c_function: [ctypes argtypes]}; every function returns
+    a C int (the ``cudaError_t`` of its launch).  Returns the CDLL."""
+    with _guard:
+        if name in _libs:
+            return _libs[name]
+    src = os.path.join(CSRC, name + '.cu')
+    so_path = os.path.join(BUILD_DIR, 'lib%s.so' % name)
+    if _stale(so_path, src):
+        _build(name, src, so_path)
+    else:
+        BUILD_INFO.setdefault(name, {'seconds': 0.0, 'log': ''})
+    lib = ctypes.CDLL(so_path)
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    with _guard:
+        _libs[name] = lib
+    return lib
+
+
+def check(err, what):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError('%s: CUDA launch failed with cudaError_t %d'
+                           % (what, err))

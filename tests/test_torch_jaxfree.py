@@ -1,0 +1,67 @@
+"""The PyTorch port never imports jax, and its main path needs no lxml
+(GPU machines may not ship it)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r'''
+import os, pkgutil, importlib, sys
+sys.path.insert(0, %(root)r)
+import archive_pdf_tools_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+print(len(names), 'jax' in sys.modules)
+'''
+
+_RECODE_WITHOUT_LXML = r'''
+import sys
+sys.modules['jax'] = None       # any import of jax or lxml now fails
+sys.modules['lxml'] = None
+sys.path.insert(0, %(root)r)
+sys.path.insert(0, %(tests)r)
+import torch
+torch.set_num_threads(2)
+from PIL import Image
+from fixtures import render_book_page, words_to_hocr_page, HOCR_TEMPLATE
+from archive_pdf_tools_tpu.validators import validate_pdfa
+from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
+tmp = %(tmp)r
+img, _ = render_book_page(200, 260, seed=0, noise=0)
+Image.fromarray(img).save(tmp + '/page_0000.png')
+with open(tmp + '/book.hocr', 'w') as fp:
+    fp.write(HOCR_TEMPLATE %% words_to_hocr_page([], 200, 260, dpi=100))
+rc = main(['--from-imagestack', tmp + '/page_*.png', '--hocr-file',
+           tmp + '/book.hocr', '--dpi', '100', '-o', tmp + '/out.pdf',
+           '--device', 'cpu', '--threads', '2'])
+validate_pdfa(tmp + '/out.pdf')
+print('rc', rc)
+'''
+
+
+def _env():
+    env = dict(os.environ, OMP_NUM_THREADS='2')
+    env.pop('APT_PLATFORM', None)
+    return env
+
+
+def test_port_imports_no_jax():
+    r = subprocess.run([sys.executable, '-c', _IMPORT_ALL % {'root': ROOT}],
+                       capture_output=True, text=True, env=_env(),
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    n, has_jax = r.stdout.split()
+    assert int(n) >= 15
+    assert has_jax == 'False'
+
+
+def test_main_path_runs_without_jax_and_lxml(tmp_path):
+    code = _RECODE_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
+                                   'tests': os.path.join(ROOT, 'tests')}
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, env=_env(), timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith('rc 0')
