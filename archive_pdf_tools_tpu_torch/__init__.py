@@ -10,6 +10,10 @@ from the JAX package unchanged, and none of them imports jax.
 
 from archive_pdf_tools_tpu.const import VERSION, __version__  # noqa: F401
 
+# stamped into Info /Producer and the XMP of every PDF the port writes
+PRODUCER = ('Internet Archive PDF (PyTorch/CUDA) %s; torch MRC engine'
+            % (VERSION,))
+
 
 def recode(*args, **kwargs):
     """Lazy alias of pipeline.recode.recode (keeps import light)."""

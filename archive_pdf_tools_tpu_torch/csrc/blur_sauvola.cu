@@ -31,8 +31,11 @@
 //              the window sums, the exact clamped count
 //              (min(y+u,h-1) - max(y-o,-1)) * (min(x+u,w-1) - max(x-o,-1))
 //              and the Sauvola test.
-//   Sums fit int32 at window 151: Q <= 65025 * 151^2 < 2^31.  Fusing the
-//   passes into one H-tiled kernel with halos is later work.
+//   The window sum of squares Q reaches 65025 * window^2, past 2^31 from
+//   window 183 (dpi >= 728), so it is kept and divided as uint32, as the
+//   JAX package does: exact while Q < 2^32, i.e. window <= 255 (the
+//   wrapper raises above that).  Fusing the passes into one H-tiled
+//   kernel with halos is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,10 +167,10 @@ __global__ void rows_kernel(const uint8_t* __restrict__ blur,
     const int lo = max(x - o + 1, 0);
     const int hi = min(x + u, W - 1) + 1;
     const int sw = (int)(ps[hi] - ps[lo]);
-    const int qw = (int)(pq[hi] - pq[lo]);
+    const uint32_t qw = pq[hi] - pq[lo];
     const int cnt = rows_in * (min(x + u, W - 1) - max(x - o, -1));
     const int mean_i = sw / cnt;
-    const int var_i = qw / cnt - mean_i * mean_i;
+    const int var_i = (int)(qw / (uint32_t)cnt) - mean_i * mean_i;
     const float mean = (float)mean_i;
     const float var = (float)var_i;
     const float px = (float)blur[rbase + x];

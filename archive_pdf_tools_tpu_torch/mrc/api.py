@@ -1,11 +1,15 @@
 """High-level MRC decomposition API on torch tensors.
 
-Counterpart of the JAX package's ``mrc/api.py`` for batches whose pages
-hold no hOCR text lines (the ``total == 0`` branch of its
-``decompose_masks``): the mask is the global threshold, despeckled.  A
-batch with any hOCR line raises ``NotImplementedError``: the line
-threshold and paste kernels are not ported yet, and a global-only mask
-would be a different result.
+Counterpart of the JAX package's ``mrc/api.py`` (``decompose_masks``,
+``decompose_layers``), with the semantics of its Pallas path, which are
+the reference's (``mrc.py:188-270``): each hOCR line's crop is
+thresholded at both polarities and counted whole, the selected crops are
+pasted in document order (the last selected line wins an overlap), then
+the global threshold is OR-ed in and the mask despeckled.
+
+The line crops are ragged (``ops/lines_cuda.RaggedLines``), so unlike
+the JAX package there are no height buckets, no host patch path for
+tall lines and no line capacity that splits a batch.
 
 Batching contract: all pages in one call share (height, width, mode,
 dpi-window).  Stage timings use the reference's keys; each stage ends
@@ -17,9 +21,13 @@ import time as _time
 import numpy as np
 import torch
 
-from archive_pdf_tools_tpu.const import DENOISE_FAST, DENOISE_NONE
+from archive_pdf_tools_tpu.const import (
+    DENOISE_FAST, DENOISE_NONE, RECODE_RUNTIME_WARNING_TOO_SMALL_TO_DOWNSAMPLE)
 from archive_pdf_tools_tpu.mrc.hocr_prep import prepare_lines
 
+from ..ops.lines_cuda import RaggedLines, line_thresholds
+from ..ops.paste_cuda import paste_lines
+from ..ops.resize import downsample_layer
 from ..ops.sauvola import sauvola_window
 from ..utils.backend import resolve_device, synchronize
 from . import decompose as D
@@ -39,14 +47,17 @@ class TimingData:
 def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
                     denoise_mask=DENOISE_FAST, exact_denoise=True,
                     timing_data=None, device=None):
-    """Mask phase for a uniform batch of pages with no hOCR lines.
+    """Mask phase for a uniform batch.
 
     np_images: list of uint8 arrays, all (H, W) gray or (H, W, 3) RGB of
-    identical shape.  Returns (bool (B, H, W) mask, uint8 page tensor),
-    both on ``device`` (default the first GPU; ``'cpu'`` runs the plain
-    PyTorch versions)."""
-    if downsample:
-        raise NotImplementedError('--downsample is not ported')
+    identical shape; word_datas: the hOCR word data of each page (line
+    boxes are divided by ``downsample`` when the pages were).  Returns
+    (bool (B, H, W) mask, uint8 page tensor), both on ``device``
+    (default the first GPU; ``'cpu'`` runs the plain PyTorch versions).
+
+    Timing keys: ``grey_conversion`` (RGB), ``hocr_mask_gen`` (line
+    preparation, line thresholds, selection), ``threshold`` (global
+    threshold and the ordered paste), ``fast_denoise``."""
     dev = resolve_device(device)
     td = TimingData(timing_data)
     imgs = np.stack(np_images)
@@ -55,15 +66,9 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
     window = sauvola_window(dpi)
 
     tl0 = _time.time()
-    page_boxes = [prepare_lines(wd, w, h) for wd in word_datas]
+    page_boxes = [prepare_lines(wd, w, h, downsample=downsample)
+                  for wd in word_datas]
     prep_dt = _time.time() - tl0
-    for p, boxes in enumerate(page_boxes):
-        if boxes:
-            raise NotImplementedError(
-                'page %d of the batch has %d hOCR line(s), the first at '
-                '(top, bottom, left, right) = %s: the line-threshold and '
-                'paste kernels are not ported yet'
-                % (p, len(boxes), boxes[0]))
 
     t0 = _time.time()
     dev_imgs = torch.from_numpy(imgs).to(dev)
@@ -73,11 +78,20 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
         td.add('grey_conversion', t0)
     else:
         gray = dev_imgs
-    # no lines: the (host) line preparation is this stage's whole cost
-    td.add('hocr_mask_gen', _time.time() - prep_dt)
+
+    # the (host) line preparation is folded into this stage, as in the
+    # JAX package
+    t0 = _time.time() - prep_dt
+    lines = RaggedLines.from_page_boxes(page_boxes, h, w, dev)
+    if lines.n:
+        crops_t, crops_i, counts = line_thresholds(gray, lines, window)
+        selector = D.line_selector(crops_t, crops_i, counts, lines)
+    td.add('hocr_mask_gen', t0)
 
     t0 = _time.time()
     mask, _sigma = D.global_mask(gray, window)
+    if lines.n:
+        mask = paste_lines(crops_t, crops_i, lines, selector, mask)
     synchronize(dev)
     td.add('threshold', t0)
 
@@ -90,22 +104,40 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
 
 
 def decompose_layers(mask, dev_imgs, bg_downsample=None, fg_downsample=None,
-                     timing_data=None):
-    """fg/bg phase: the radiate fills, as uint8 numpy arrays.
+                     timing_data=None, errors=None):
+    """fg/bg phase: the radiate fills and the optional layer downsampling,
+    as uint8 numpy arrays (downsampled sizes if requested).
 
     mask: bool (B, H, W) tensor; dev_imgs: uint8 (B, H, W[, 3]) tensor on
-    the same device."""
-    if bg_downsample or fg_downsample:
-        raise NotImplementedError('--bg-downsample / --fg-downsample are '
-                                  'not ported')
+    the same device.  ``errors`` (a set) collects the reference's
+    too-small-to-downsample warning."""
     td = TimingData(timing_data)
     t0 = _time.time()
     fg = D.fg_layer(mask, dev_imgs)
     synchronize(fg.device)
     td.add('fg_partial_blur', t0)
+    if fg_downsample:
+        t0 = _time.time()
+        fg = _downsample(fg, fg_downsample, errors)
+        synchronize(fg.device)
+        td.add('fg_downsample', t0)
 
     t0 = _time.time()
     bg = D.bg_layer(mask, dev_imgs)
     synchronize(bg.device)
     td.add('bg_partial_blur', t0)
+    if bg_downsample:
+        t0 = _time.time()
+        bg = _downsample(bg, bg_downsample, errors)
+        synchronize(bg.device)
+        td.add('bg_downsample', t0)
     return fg.cpu().numpy(), bg.cpu().numpy()
+
+
+def _downsample(layer, factor, errors):
+    """Layer thumbnail semantics (``mrc.py:420-434``): box (w//f, h//f),
+    PIL aspect fit, warning when degenerate."""
+    out, ok = downsample_layer(layer, factor)
+    if not ok and errors is not None:
+        errors.add(RECODE_RUNTIME_WARNING_TOO_SMALL_TO_DOWNSAMPLE)
+    return out

@@ -1,17 +1,18 @@
 """Batched MRC decomposition stages (mask -> fg -> bg) on torch tensors.
 
-Counterpart of the JAX package's ``mrc/decompose.py`` for pages with no
-hOCR lines: gray conversion, the noise estimate and its blur taps, the
-global threshold (pre-blur + Sauvola, k=0.34), the mask despeckle and
-the fg/bg radiate fills.  Each kernel stage calls a wrapper that runs
-the hand-written CUDA kernel for a CUDA tensor and the plain PyTorch
-version for a CPU tensor.
+Counterpart of the JAX package's ``mrc/decompose.py``: gray conversion,
+the noise estimate and its blur taps, the global threshold (pre-blur +
+Sauvola, k=0.34), the host line-selection heuristic, the mask despeckle
+and the fg/bg radiate fills.  Each kernel stage calls a wrapper that
+runs the hand-written CUDA kernel for a CUDA tensor and the plain
+PyTorch version for a CPU tensor.
 """
 
 import numpy as np
 import torch
 
 from archive_pdf_tools_tpu.const import DENOISE_FAST, DENOISE_NONE
+from archive_pdf_tools_tpu.ops.golden import estimate_sigma_np
 
 from ..ops.sigma import estimate_noise
 from ..ops.threshold_cuda import (MAX_BLUR_RADIUS, RADIUS_BUCKETS,
@@ -73,6 +74,96 @@ def global_mask(gray, window, taps=None):
     sigma_est = estimate_noise(gray)
     taps = blur_weights_from_sigma(sigma_est, pick_blur_radius(sigma_est))
     return blur_sauvola(gray, taps.contiguous(), window), sigma_est
+
+
+def select_lines(ones, ones_inv, size, sigma_fn, n_lines):
+    """Host-side selection heuristic per line (``mrc.py:231-264``).
+
+    sigma_fn(line_idx) -> (ratio_sigma, inv_ratio_sigma) is only invoked
+    for lines the ratio tests cannot decide (it is expensive; the
+    reference guards it the same way).
+
+    Returns boolean numpy arrays (use_plain, use_inv) indexed by line id.
+    """
+    n_seg = len(size)
+    use_plain = np.zeros(n_seg, bool)
+    use_inv = np.zeros(n_seg, bool)
+    for i in range(1, n_lines + 1):
+        sz = int(size[i])
+        if sz <= 0:
+            continue
+        ratio = int(ones[i]) / sz
+        inv_ratio = int(ones_inv[i]) / sz
+        if ratio < 0.3 or inv_ratio < 0.3:
+            if inv_ratio > 0.2 and ratio < 0.2:
+                use_plain[i] = True
+            else:
+                ratio_sigma, inv_ratio_sigma = sigma_fn(i)
+                if inv_ratio < 0.3 and inv_ratio < ratio and \
+                        (inv_ratio_sigma < ratio_sigma or
+                         (ratio_sigma < 0.1 and inv_ratio_sigma < 0.1)):
+                    use_inv[i] = True
+                elif ratio < 0.2:
+                    use_plain[i] = True
+    return use_plain, use_inv
+
+
+def fetch_crops(crops_t, crops_i, lines, idx):
+    """Crops of the lines ``idx`` at both polarities, gathered from the
+    ragged buffers on their device and brought to the host in ONE copy.
+    Returns {line: (crop_t, crop_i)} of uint8 numpy (b-t, r-l) arrays."""
+    idx = np.asarray(idx, np.int64)
+    if len(idx) == 0:
+        return {}
+    dev = crops_t.device
+    lens = lines.sizes[idx]
+    total = int(lens.sum())
+    starts = torch.from_numpy(lines.offsets[idx]).to(dev)
+    firsts = torch.from_numpy(np.cumsum(lens) - lens).to(dev)
+    lens_t = torch.from_numpy(lens).to(dev)
+    pos = (torch.repeat_interleave(starts - firsts, lens_t,
+                                   output_size=total)
+           + torch.arange(total, device=dev))
+    both = torch.stack([crops_t[pos], crops_i[pos]]).cpu().numpy()
+    out = {}
+    a = 0
+    for i, n in zip(idx, lens):
+        t, b, l, r = lines.boxes[i]
+        shape = (int(b - t), int(r - l))
+        out[int(i)] = (both[0, a:a + n].reshape(shape),
+                       both[1, a:a + n].reshape(shape))
+        a += n
+    return out
+
+
+def line_selector(crops_t, crops_i, counts, lines):
+    """Which crop each line pastes: host int32 (n,) of 0 (none), 1
+    (plain) or 2 (inverse), by ``select_lines`` on the ink counts.  The
+    lines whose ratios cannot decide (``mrc.py:240-251``) need the
+    wavelet sigma of both crops: those crops are fetched together, in
+    one device-to-host copy, before the heuristic runs."""
+    n = lines.n
+    cnt = counts.cpu().numpy().astype(np.int64)
+    # slot 0 is a dummy line (select_lines counts lines from 1)
+    ones = np.concatenate([[0], cnt[:, 0]])
+    ones_inv = np.concatenate([[0], cnt[:, 1]])
+    size = np.concatenate([[0], lines.sizes]).astype(np.int64)
+    size_h = np.maximum(size, 1)
+    ratio = ones / size_h
+    inv = ones_inv / size_h
+    needy = np.flatnonzero(((ratio < 0.3) | (inv < 0.3))
+                           & ~((inv > 0.2) & (ratio < 0.2))
+                           & (np.arange(n + 1) > 0))
+    cache = fetch_crops(crops_t, crops_i, lines, needy - 1)
+
+    def sigma_fn(i):
+        ct, ci = cache[i - 1]
+        return (estimate_sigma_np(ct.astype(np.float64)),
+                estimate_sigma_np(ci.astype(np.float64)))
+
+    use_plain, use_inv = select_lines(ones, ones_inv, size, sigma_fn, n)
+    return np.where(use_plain, 1, np.where(use_inv, 2, 0))[1:] \
+        .astype(np.int32)
 
 
 def denoise_mask(mask, mode, exact=True):

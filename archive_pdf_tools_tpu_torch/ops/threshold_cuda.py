@@ -35,6 +35,8 @@ _SIGNATURES = {'apt_blur_sauvola': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
 
 # two uint32 prefix rows per CTA in at most 227 KB of shared memory
 MAX_WIDTH = (227 * 1024) // 8 - 512
+# the window sum of squares (<= 65025 * window^2) is exact in uint32
+MAX_WINDOW = 255
 
 
 def separable_blur(img, taps):
@@ -72,6 +74,9 @@ def _check(img, taps, window, k):
                          % (img.device, taps.device))
     if window < 1 or window % 2 != 1:
         raise ValueError('blur_sauvola: window must be odd, got %d' % window)
+    if window > MAX_WINDOW:
+        raise ValueError('blur_sauvola: window %d exceeds the kernel limit '
+                         '%d (uint32 sum of squares)' % (window, MAX_WINDOW))
     if k < 0:
         raise ValueError('blur_sauvola: k >= 0 only (global threshold)')
 

@@ -1,13 +1,14 @@
 """recode(): the end-to-end document pipeline on torch tensors.
 
 Counterpart of the JAX package's ``pipeline/recode.py`` for its main
-path: an image stack plus hOCR, MRC mode.  Pass 1 writes one
-invisible-text page per hOCR page; pass 2 groups the pages into batches
-of equal shape/mode/dpi on a loader thread, runs the MRC decomposition
-of each batch on the device (``mrc/api.py``), encodes mask/fg/bg on a
-host thread pool while the next batch computes, and inserts the encoded
-streams in page order, so xref numbering (and the output bytes) never
-depend on thread completion order.
+path: an image stack plus hOCR, MRC mode, with optional page and layer
+downsampling.  Pass 1 writes one invisible-text page per hOCR page;
+pass 2 groups the pages into batches of equal shape/mode/dpi on a loader
+thread, runs the MRC decomposition of each batch on the device
+(``mrc/api.py``), encodes mask/fg/bg on a host thread pool while the
+next batch computes, and inserts the encoded streams in page order, so
+xref numbering (and the output bytes) never depend on thread completion
+order.  The PDF names this engine (``PRODUCER``) in Info and XMP.
 
 Options the port does not cover yet raise ``NotImplementedError`` naming
 the flag; nothing silently runs something else.
@@ -21,8 +22,10 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
 from time import time
+from xml.sax.saxutils import escape as xmlescape
 
 import numpy as np
+import torch
 from PIL import Image
 
 # first: on hosts without lxml it provides the hOCR module the shared
@@ -39,9 +42,12 @@ from archive_pdf_tools_tpu.codecs.jpeg2000 import (decode_jpeg2000,
 from archive_pdf_tools_tpu.codecs.mrc_encode import (
     encode_mrc_mask, encode_mrc_images, EncodedLayer, EncodedMask,
     PackedMask)
+from archive_pdf_tools_tpu.const import PRODUCER as JAX_PRODUCER
 from archive_pdf_tools_tpu.pdf.builder import DocumentBuilder
+from archive_pdf_tools_tpu.pdf.writer import Name
 from archive_pdf_tools_tpu.pipeline.timing import get_timing_summary, Reporter
 
+from .. import PRODUCER
 from ..mrc.api import decompose_masks, decompose_layers
 from ..utils.backend import (pack_mask_bits, resolve_device,
                              unpack_mask_bits)
@@ -155,15 +161,19 @@ class PageJob:
         self.hq = hq
 
 
-def _load_page_image(image_files, src_idx, jpeg2000_implementation,
-                     threads, debug, timing_data):
-    """Image load policy (``recode.py:318-372``, image stacks only)."""
+def _load_page_image(image_files, src_idx, downsample,
+                     jpeg2000_implementation, threads, debug, timing_data):
+    """Image load policy (``recode.py:318-372``, image stacks only):
+    ``--downsample`` reduces JPEG2000 pages in the decoder and shrinks
+    other pages with a LANCZOS thumbnail on the host."""
     t = time()
     imgfile = image_files[src_idx]
+    downsampled = False
     if imgfile.endswith(('.jp2', '.jpx')):
-        image = decode_jpeg2000(imgfile, reduce_=None,
+        image = decode_jpeg2000(imgfile, reduce_=downsample,
                                 impl=jpeg2000_implementation,
                                 threads=threads, debug=debug)
+        downsampled = bool(downsample)
     else:
         image = Image.open(imgfile)
         image.load()
@@ -173,6 +183,11 @@ def _load_page_image(image_files, src_idx, jpeg2000_implementation,
         image = image.convert('L')
     if timing_data is not None:
         timing_data.append(('image_load', time() - t))
+
+    if downsample is not None and not downsampled:
+        w, h = image.size
+        image.thumbnail((w / downsample, h / downsample),
+                        resample=Image.LANCZOS, reducing_gap=None)
     return image
 
 
@@ -262,8 +277,9 @@ def _write_artifacts(img_dir, job, image_mode, em, eb, ef):
 def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
                       dpi_pages=None, bg_compression_flags=None,
                       fg_compression_flags=None, skip_pages=None,
-                      img_dir=None, jbig2=True, denoise_mask=DENOISE_FAST,
-                      reporter=None, hq_pages=None,
+                      img_dir=None, jbig2=True, downsample=None,
+                      bg_downsample=None, fg_downsample=None,
+                      denoise_mask=DENOISE_FAST, reporter=None, hq_pages=None,
                       hq_bg_compression_flags=None,
                       hq_fg_compression_flags=None, verbose=False,
                       debug=False, tmp_dir=None, report_every=None,
@@ -272,7 +288,7 @@ def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
                       mrc_image_format=COMPRESSOR_JPEG2000,
                       mask_compression=COMPRESSOR_JBIG2, threads=None,
                       batch_pages=DEFAULT_BATCH_PAGES, exact_denoise=True,
-                      resume=False, device=None):
+                      resume=False, errors=None, device=None):
     """Pass 2 (``recode.py:266-529``), batched on ``device``."""
     timing_data = _TimingSink()
     if img_dir is not None:
@@ -363,10 +379,17 @@ def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
 
         mask_dev, dev_imgs = decompose_masks(
             arrs, [j.word_data for j in batch_jobs], dpi=batch_jobs[0].dpi,
-            denoise_mask=denoise_mask, exact_denoise=exact_denoise,
-            timing_data=timing_data, device=device)
-        fg_np, bg_np = decompose_layers(mask_dev, dev_imgs,
-                                        timing_data=timing_data)
+            downsample=downsample, denoise_mask=denoise_mask,
+            exact_denoise=exact_denoise, timing_data=timing_data,
+            device=device)
+        # HQ pages keep full-resolution layers
+        any_hq = any(j.hq for j in batch_jobs)
+        all_hq = all(j.hq for j in batch_jobs)
+        fg_np, bg_np = decompose_layers(
+            mask_dev, dev_imgs,
+            bg_downsample=None if all_hq else bg_downsample,
+            fg_downsample=None if all_hq else fg_downsample,
+            timing_data=timing_data, errors=errors)
         t = time()
         packed_np = pack_mask_bits(mask_dev).cpu().numpy()
         h_m, w_m = int(mask_dev.shape[1]), int(mask_dev.shape[2])
@@ -378,9 +401,20 @@ def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
             masks = unpack_mask_bits(packed_np, w_m)
         timing_data.append(('mask_fetch', time() - t))
 
+        hq_layers = {}
+        if any_hq and not all_hq and (bg_downsample or fg_downsample):
+            # one call for every HQ page of a mixed batch
+            hq_idx = [i for i, job in enumerate(batch_jobs) if job.hq]
+            sel = torch.tensor(hq_idx, device=mask_dev.device)
+            f, b = decompose_layers(mask_dev.index_select(0, sel),
+                                    dev_imgs.index_select(0, sel),
+                                    timing_data=timing_data, errors=errors)
+            hq_layers = {i: (f[k], b[k]) for k, i in enumerate(hq_idx)}
+
         for i, job in enumerate(batch_jobs):
+            f_np, b_np = hq_layers.get(i, (fg_np[i], bg_np[i]))
             pending.append(pool.submit(encode_page, job, masks[i],
-                                       fg_np[i], bg_np[i], mode))
+                                       f_np, b_np, mode))
         while len(pending) > max_pending:
             drain_one(pending.pop(0))
 
@@ -398,8 +432,8 @@ def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
                 if stop_loading.is_set():
                     return
                 image = _load_page_image(image_files, job.src_idx,
-                                         jpeg2000_implementation, threads,
-                                         debug, timing_data)
+                                         downsample, jpeg2000_implementation,
+                                         threads, debug, timing_data)
                 key = (image.size,
                        image.mode if image.mode in ('1', 'L', 'RGB')
                        else 'RGB', job.dpi)
@@ -477,9 +511,8 @@ def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
 
 
 def _reject_unported(from_pdf, image_mode, grayscale_pdf,
-                     force_1bit_output, jpeg2000_implementation, downsample,
-                     bg_downsample, fg_downsample, jbig2_symbol_mode,
-                     jbig2_bands, profile_dir):
+                     force_1bit_output, jpeg2000_implementation,
+                     jbig2_symbol_mode, jbig2_bands, profile_dir):
     """Options off the ported slice raise; none silently runs another
     path."""
     unported = [
@@ -489,9 +522,6 @@ def _reject_unported(from_pdf, image_mode, grayscale_pdf,
         (jpeg2000_implementation == JPEG2000_IMPL_TPU, '-J tpu'),
         (grayscale_pdf, '--grayscale-pdf'),
         (force_1bit_output, '--bw-pdf'),
-        (bool(downsample), '--downsample'),
-        (bool(bg_downsample), '--bg-downsample'),
-        (bool(fg_downsample), '--fg-downsample'),
         (bool(jbig2_symbol_mode), '--jbig2-symbol-coding other than off'),
         (jbig2_bands > 1, '--jbig2-bands above 1'),
         (profile_dir is not None, '--profile'),
@@ -500,6 +530,24 @@ def _reject_unported(from_pdf, image_mode, grayscale_pdf,
         if bad:
             raise NotImplementedError(
                 '%s: not ported to archive_pdf_tools_tpu_torch yet' % flag)
+
+
+def _stamp_producer(builder, default_creatortool):
+    """Name this engine in Info /Producer and in the XMP's pdf:Producer
+    and, unless the caller gave one, xmp:CreatorTool: the shared builder
+    stamps the JAX package's ``const.PRODUCER``.  Info and XMP must
+    agree for PDF/A."""
+    theirs = xmlescape(JAX_PRODUCER)
+    ours = xmlescape(PRODUCER)
+    tags = ['pdf:Producer'] + (['xmp:CreatorTool'] if default_creatortool
+                               else [])
+    for tag in tags:
+        old = '<%s>%s</%s>' % (tag, theirs, tag)
+        if builder.xmp.count(old) != 1:
+            raise RuntimeError('XMP lacks one %s' % old)
+        builder.xmp = builder.xmp.replace(old, '<%s>%s</%s>'
+                                          % (tag, ours, tag))
+    builder.info[Name('Producer')] = PRODUCER
 
 
 def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
@@ -527,9 +575,8 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     JAX package's ``recode`` plus ``device`` (default the first GPU;
     ``'cpu'`` runs the plain PyTorch versions of the kernels)."""
     _reject_unported(from_pdf, image_mode, grayscale_pdf,
-                     force_1bit_output, jpeg2000_implementation, downsample,
-                     bg_downsample, fg_downsample, jbig2_symbol_mode,
-                     jbig2_bands, profile_dir)
+                     force_1bit_output, jpeg2000_implementation,
+                     jbig2_symbol_mode, jbig2_bands, profile_dir)
     if from_imagestack is None:
         raise ValueError('recode: from_imagestack is required')
     device = resolve_device(device)
@@ -606,6 +653,8 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
             bg_compression_flags=bg_compression_flags,
             fg_compression_flags=fg_compression_flags,
             skip_pages=skip_pages, img_dir=out_dir, jbig2=jbig2,
+            downsample=downsample, bg_downsample=bg_downsample,
+            fg_downsample=fg_downsample,
             denoise_mask=denoise_mask, reporter=reporter, hq_pages=hq,
             hq_bg_compression_flags=hq_bg_compression_flags,
             hq_fg_compression_flags=hq_fg_compression_flags,
@@ -615,7 +664,7 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
             mrc_image_format=mrc_image_format,
             mask_compression=mask_compression, threads=threads,
             batch_pages=batch_pages, exact_denoise=exact_denoise,
-            resume=resume, device=device)
+            resume=resume, errors=errors, device=device)
 
     builder.write_pdfa()
     if scandata_file is not None:
@@ -637,6 +686,7 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
             extra_metadata[key] = val
     builder.write_metadata(extra_metadata=extra_metadata,
                            from_docinfo=None, from_xmp=None)
+    _stamp_producer(builder, 'creatortool' not in extra_metadata)
 
     if verbose:
         print('Saving PDF now (pass 2 + finalize took %.2fs)'

@@ -4,19 +4,25 @@ one NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-1. Device and build: the card's name and power limit, and the nvcc build
-   of the three kernels (``archive_pdf_tools_tpu_torch/csrc``).
+1. Device and build: the card's name and power limit, and the nvcc
+   builds of the five kernels (``archive_pdf_tools_tpu_torch/csrc``),
+   all started together.
 2. Kernel vs plain version, on the card, at the main path's shapes (a
-   batch of 8 gray 400-DPI pages, 3300x2550; RGB for the fill): each
-   kernel must equal its plain PyTorch version bit for bit.  Times are
-   medians of CUDA-event-timed runs after a warm-up.  Then the same
-   check at small and ragged shapes.
-3. End to end: a 16-page 400-DPI book whose hOCR holds no words goes
-   through the recode_pdf_torch CLI with default flags (two batches of
-   8); the output must pass the PDF/A validator and every kernel must
-   have launched.  A small book recoded on the card must also equal,
-   byte for byte, the same book recoded with the plain versions on the
-   CPU.
+   batch of 8 gray 400-DPI pages, 3300x2550, and their ~60 hOCR lines a
+   page; RGB for the fill): each kernel must equal its plain PyTorch
+   version bit for bit.  The line paste runs with the real selection and
+   with an adversarial one over overlapping boxes.  Times are medians of
+   CUDA-event-timed runs after a warm-up.  Then (2b) the same check at
+   small and ragged shapes: one-row, tall (> 512 rows) and narrow lines,
+   pages with no lines, no selected line, and the global threshold at
+   windows 183 and 201 (sums of squares past 2^31).
+3. End to end, through the recode_pdf_torch CLI: a 16-page 400-DPI book
+   with hOCR lines (15 gray pages, 1 RGB), once with default flags and
+   once with ``--bg-downsample 3``; then 8 of its pages with hOCR that
+   holds no words.  Each output must pass the PDF/A validator and each
+   kernel of the path must have launched in that run.  A small worded
+   book recoded on the card must also equal, byte for byte, the same
+   book recoded with the plain versions on the CPU (3b).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the run exits
@@ -25,16 +31,41 @@ The line before the last is the kernels' JSON summary; the last line is
 
 import glob
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, DPI, BATCH, N_PAGES = 3300, 2550, 400, 8, 16
+WINDOW = 101                             # sauvola_window(400)
+DEV = 'cuda:0'
+
+# csrc/<name>.cu: (wrapper module in ops/, wrapper function, TPU kernel
+# it replaces)
+KERNELS = {
+    'optimise': ('optimise_cuda', 'optimise',
+                 'archive_pdf_tools_tpu/ops/optimise_pallas.py:232'),
+    'despeckle': ('denoise_cuda', 'fast_mask_denoise',
+                  'archive_pdf_tools_tpu/ops/denoise_pallas.py:349'),
+    'blur_sauvola': ('threshold_cuda', 'blur_sauvola',
+                     'archive_pdf_tools_tpu/ops/threshold_pallas.py:233'),
+    'line_sauvola': ('lines_cuda', 'line_thresholds',
+                     'archive_pdf_tools_tpu/ops/lines_pallas.py:256'),
+    'paste': ('paste_cuda', 'paste_lines',
+              'archive_pdf_tools_tpu/ops/paste_pallas.py:203'),
+}
+
+
+def _wrapper_module(name):
+    import importlib
+    return importlib.import_module('archive_pdf_tools_tpu_torch.ops.'
+                                   + KERNELS[name][0])
 
 
 def _cuda_ms(fn, reps):
@@ -52,20 +83,41 @@ def _cuda_ms(fn, reps):
     return float(np.median(times))
 
 
-def _compare(name, kernel_fn, plain_fn):
+def _max_err(got, ref):
+    """Largest absolute difference over a tensor or a tuple of them."""
+    import torch
+    if not isinstance(got, tuple):
+        got, ref = (got,), (ref,)
+    err = 0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape:
+            return -1
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - r.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
+def _compare(name, kernel_fn, plain_fn, plain_reps=2):
     """Kernel vs plain on the same inputs: bit-exact, with both times."""
     import torch
     got = kernel_fn()                    # warm-up + result
     ref = plain_fn()
     torch.cuda.synchronize()
-    err = int((got.to(torch.int32) - ref.to(torch.int32)).abs().max())
+    err = _max_err(got, ref)
     ms = _cuda_ms(kernel_fn, 5)
-    plain_ms = _cuda_ms(plain_fn, 2)
-    print('  %-34s max_abs_err=%d  kernel %.3f ms  plain %.3f ms'
+    plain_ms = _cuda_ms(plain_fn, plain_reps)
+    print('  %-38s max_abs_err=%d  kernel %.3f ms  plain %.3f ms'
           % (name, err, ms, plain_ms))
     if err != 0:
         raise SystemExit('FAIL: %s differs from its plain version' % name)
     return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+
+
+def _check_equal(what, got, ref):
+    if _max_err(got, ref) != 0:
+        raise SystemExit('FAIL: %s: kernel differs from its plain version'
+                         % what)
 
 
 def _tests_module(name):
@@ -79,28 +131,40 @@ def _tests_module(name):
     return mod
 
 
-def make_pages(n):
-    """n synthetic 400-DPI gray book pages, deterministic in the seed."""
-    synth_scan = _tests_module('scanfix').synth_scan
-    return [synth_scan(h=H, w=W, seed=i, dpi=DPI, fast_paper=True)[0]
-            for i in range(n)]
+def _make_page(i):
+    """Book page i: a synthetic 400-DPI scan and its hOCR word data; the
+    last page RGB (sepia), as tools/e2e_bench.py builds its corpus."""
+    img, wd = _tests_module('scanfix').synth_scan(h=H, w=W, seed=100 + i,
+                                                  dpi=DPI, fast_paper=True)
+    if i == N_PAGES - 1:
+        img = np.stack([img, (img * 0.93).astype(np.uint8),
+                        (img * 0.82).astype(np.uint8)], axis=-1)
+    return img, wd
+
+
+def make_pages():
+    """The N_PAGES book pages, made in parallel worker processes."""
+    ctx = multiprocessing.get_context('spawn')
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as ex:
+        return list(ex.map(_make_page, range(N_PAGES)))
 
 
 def phase_build():
     import torch
     from archive_pdf_tools_tpu_torch.utils import cudabuild
-    from archive_pdf_tools_tpu_torch.ops import (optimise_cuda, denoise_cuda,
-                                                 threshold_cuda)
     print('device:', torch.cuda.get_device_name(0))
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print('nvidia-smi:', smi)
     print('torch', torch.__version__, 'cuda', torch.version.cuda)
-    for name, mod in (('optimise', optimise_cuda),
-                      ('despeckle', denoise_cuda),
-                      ('blur_sauvola', threshold_cuda)):
-        cudabuild.load(name, mod._SIGNATURES)
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:
+        list(ex.map(lambda k: cudabuild.load(
+            k, _wrapper_module(k)._SIGNATURES), KERNELS))
+    print('nvcc builds, all started together: %.2f s' % (time.time() - t0))
+    for name in KERNELS:
         info = cudabuild.BUILD_INFO[name]
         print('nvcc build %s: %.2f s' % (name, info['seconds']))
         for line in info['log'].splitlines():
@@ -109,21 +173,22 @@ def phase_build():
     return smi
 
 
-def phase_kernels(pages):
+def phase_kernels(pages, wds):
     import torch
+    from archive_pdf_tools_tpu.mrc.hocr_prep import prepare_lines
     from archive_pdf_tools_tpu_torch.mrc import decompose as D
     from archive_pdf_tools_tpu_torch.ops import (optimise_cuda, denoise_cuda,
-                                                 threshold_cuda)
+                                                 threshold_cuda, lines_cuda,
+                                                 paste_cuda)
     from archive_pdf_tools_tpu_torch.ops.optimise import optimise as opt_plain
     from archive_pdf_tools_tpu_torch.ops.denoise import \
         fast_mask_denoise_exact as den_plain
     from archive_pdf_tools_tpu_torch.ops.sigma import estimate_noise
 
-    dev = torch.device('cuda:0')
-    window = 101                         # sauvola_window(400)
-    gray = torch.from_numpy(np.stack(pages[:BATCH])).to(dev)
+    dev = torch.device(DEV)
+    gray = torch.from_numpy(np.stack(pages)).to(dev)
     rng = np.random.default_rng(1234)
-    noisy_np = np.clip(np.stack(pages[:BATCH]).astype(np.float32)
+    noisy_np = np.clip(np.stack(pages).astype(np.float32)
                        + rng.normal(0, 18, (BATCH, H, W)), 0, 255)
     noisy = torch.from_numpy(noisy_np.astype(np.uint8)).to(dev)
     rgb = torch.stack([gray, (gray.to(torch.int32) + 9).clamp(0, 255)
@@ -145,11 +210,46 @@ def phase_kernels(pages):
     k3 = []
     for name, img, taps in cases:
         k3.append(_compare(
-            name, lambda: threshold_cuda.blur_sauvola(img, taps, window),
-            lambda: threshold_cuda.blur_sauvola_plain(img, taps, window)))
+            name, lambda: threshold_cuda.blur_sauvola(img, taps, WINDOW),
+            lambda: threshold_cuda.blur_sauvola_plain(img, taps, WINDOW)))
     results['blur_sauvola'] = (k3[1], k3)
+    gmask = threshold_cuda.blur_sauvola(gray, cases[1][2], WINDOW)
 
-    mask = threshold_cuda.blur_sauvola(gray, cases[1][2], window)
+    # K4 and K5 on the hOCR lines of the 8 pages
+    lines = lines_cuda.RaggedLines.from_page_boxes(
+        [prepare_lines(wd, W, H) for wd in wds], H, W, dev)
+    heights = lines.boxes[:, 1] - lines.boxes[:, 0]
+    print('  %d lines (%.1f a page), rows %d-%d, %.1f MB of crops a '
+          'polarity' % (lines.n, lines.n / BATCH, heights.min(),
+                        heights.max(), lines.total / 1e6))
+    k4 = _compare('line_sauvola (hOCR lines)',
+                  lambda: lines_cuda.line_thresholds(gray, lines, WINDOW),
+                  lambda: lines_cuda.line_thresholds_plain(gray, lines,
+                                                           WINDOW))
+    results['line_sauvola'] = (k4, [k4])
+    ct, ci, counts = lines_cuda.line_thresholds(gray, lines, WINDOW)
+    sel = D.line_selector(ct, ci, counts, lines)
+    print('  select_lines: %d plain, %d inverse, %d none'
+          % ((sel == 1).sum(), (sel == 2).sum(), (sel == 0).sum()))
+    k5 = [_compare('paste (select_lines selector)',
+                   lambda: paste_cuda.paste_lines(ct, ci, lines, sel, gmask),
+                   lambda: paste_cuda.paste_lines_plain(ct, ci, lines, sel,
+                                                        gmask))]
+    # adversarial: every box grown 40 rows down, so neighbours overlap,
+    # with a random selector
+    grown = lines.boxes.copy()
+    grown[:, 1] = np.minimum(grown[:, 1] + 40, H)
+    glines = lines_cuda.RaggedLines(grown, lines.pages, BATCH, H, W, dev)
+    gct, gci, _ = lines_cuda.line_thresholds(gray, glines, WINDOW)
+    gsel = rng.integers(0, 3, glines.n).astype(np.int32)
+    k5.append(_compare(
+        'paste (overlaps, random selector)',
+        lambda: paste_cuda.paste_lines(gct, gci, glines, gsel, gmask),
+        lambda: paste_cuda.paste_lines_plain(gct, gci, glines, gsel, gmask)))
+    results['paste'] = (k5[0], k5)
+    del ct, ci, gct, gci
+
+    mask = threshold_cuda.blur_sauvola(gray, cases[1][2], WINDOW)
     r = _compare('despeckle (sauvola mask)',
                  lambda: denoise_cuda.fast_mask_denoise(mask, 4, 2),
                  lambda: den_plain(mask, 4, 2))
@@ -169,17 +269,42 @@ def phase_kernels(pages):
     return results
 
 
+def _stroke_page(rng, h, w):
+    """Light paper, dark strokes, gaussian noise (tests/test_kernels.py
+    synth_page, which imports jax)."""
+    img = np.full((h, w), 235.0)
+    for _ in range(60):
+        y, x = rng.integers(5, h - 15), rng.integers(5, w - 40)
+        img[y:y + rng.integers(2, 5), x:x + rng.integers(10, 35)] = \
+            rng.integers(10, 60)
+    img += rng.normal(0, 20, size=(h, w))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _bright_page(rng, h, w):
+    """Bright paper (240-255) with mid-grey strokes: window sums of
+    squares near 65025 * window^2."""
+    img = rng.integers(240, 256, (h, w)).astype(np.uint8)
+    for y in range(8, h - 8, 23):
+        for x in range(10, w - 14, 9):
+            img[y:y + 5, x:x + 4] = 150
+    return img
+
+
 def phase_odd_shapes():
     """Kernel == plain at small and ragged shapes: windows and blur
-    radii larger than the page, widths under one warp, odd batches."""
+    radii larger than the page, widths under one warp, odd batches,
+    ragged hOCR lines, and windows whose sum of squares passes 2^31."""
     import torch
     from archive_pdf_tools_tpu_torch.mrc import decompose as D
     from archive_pdf_tools_tpu_torch.ops import (optimise_cuda, denoise_cuda,
-                                                 threshold_cuda)
+                                                 threshold_cuda, lines_cuda,
+                                                 paste_cuda)
     from archive_pdf_tools_tpu_torch.ops.optimise import optimise as opt_plain
     from archive_pdf_tools_tpu_torch.ops.denoise import \
         fast_mask_denoise_exact as den_plain
-    dev = torch.device('cuda:0')
+    from archive_pdf_tools_tpu_torch.ops.sigma import estimate_noise
+    dev = torch.device(DEV)
     rng = np.random.default_rng(99)
     n_cases = 0
     for b, h, w in ((1, 1, 1), (2, 5, 7), (1, 40, 33), (3, 97, 301),
@@ -189,60 +314,117 @@ def phase_odd_shapes():
         sig = torch.from_numpy(rng.uniform(8, 40, b).astype(np.float32))
         for r, window in ((4, 31), (16, 101)):
             taps = D.blur_weights_from_sigma(sig.to(dev), r).contiguous()
-            got = threshold_cuda.blur_sauvola(img, taps, window)
-            ref = threshold_cuda.blur_sauvola_plain(img, taps, window)
+            _check_equal('blur_sauvola at %s r=%d' % ((b, h, w), r),
+                         threshold_cuda.blur_sauvola(img, taps, window),
+                         threshold_cuda.blur_sauvola_plain(img, taps,
+                                                           window))
             n_cases += 1
-            if not torch.equal(got, ref):
-                raise SystemExit('FAIL: blur_sauvola differs at %s r=%d'
-                                 % ((b, h, w), r))
         mask = torch.from_numpy(rng.random((b, h, w)) < 0.3).to(dev)
-        if not torch.equal(denoise_cuda.fast_mask_denoise(mask, 4, 2),
-                           den_plain(mask, 4, 2)):
-            raise SystemExit('FAIL: despeckle differs at %s' % ((b, h, w),))
+        _check_equal('despeckle at %s' % ((b, h, w),),
+                     denoise_cuda.fast_mask_denoise(mask, 4, 2),
+                     den_plain(mask, 4, 2))
         rgb = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
                                             dtype=np.uint8)).to(dev)
         for im in (img, rgb):
             for m, n in ((mask, 3), (~mask, 10)):
-                if not torch.equal(optimise_cuda.optimise(m, im, n),
-                                   opt_plain(m, im, n)):
-                    raise SystemExit('FAIL: optimise differs at %s n=%d'
-                                     % (tuple(im.shape), n))
+                _check_equal('optimise at %s n=%d' % (tuple(im.shape), n),
+                             optimise_cuda.optimise(m, im, n),
+                             opt_plain(m, im, n))
         n_cases += 5
+
+    # K3 where the window sum of squares passes 2^31 (dpi >= 728)
+    bright = torch.from_numpy(np.stack([_bright_page(rng, 520, 640)
+                                        for _ in range(2)])).to(dev)
+    sig = estimate_noise(bright)
+    for window in (183, 201):
+        for taps in (D.blur_weights_from_sigma(sig, 4).contiguous(),
+                     D.blur_weights_from_sigma(sig * 0, 4).contiguous()):
+            got = threshold_cuda.blur_sauvola(bright, taps, window)
+            ref = threshold_cuda.blur_sauvola_plain(bright, taps, window)
+            _check_equal('blur_sauvola window %d' % window, got, ref)
+            if not (ref.any() and got.any()):
+                raise SystemExit('FAIL: blur_sauvola window %d marks no ink'
+                                 % window)
+            n_cases += 1
+
+    # K4 / K5 at ragged line shapes; page 2 of the batch has no lines
+    b, h, w = 3, 700, 500
+    gray = torch.from_numpy(np.stack([_stroke_page(rng, h, w)
+                                      for _ in range(b)])).to(dev)
+    boxes = [[0, 1, 0, 500], [5, 6, 10, 300],          # one-row lines
+             [20, 640, 30, 470],                       # tall: 620 rows
+             [100, 130, 200, 205], [300, 302, 7, 8],   # narrower than window
+             [690, 700, 400, 500], [0, 700, 480, 500],  # page edges
+             [40, 90, 0, 500], [60, 110, 0, 250]]      # overlapping
+    pages = [0, 0, 0, 1, 1, 1, 1, 0, 0]
+    lines = lines_cuda.RaggedLines(boxes, pages, b, h, w, dev)
+    gmask = torch.from_numpy(rng.random((b, h, w)) < 0.05).to(dev)
+    for window in (31, 101):
+        got = lines_cuda.line_thresholds(gray, lines, window)
+        ref = lines_cuda.line_thresholds_plain(gray, lines, window)
+        _check_equal('line_sauvola ragged lines window %d' % window, got,
+                     ref)
+        ct, ci, counts = got
+        real = D.line_selector(ct, ci, counts, lines)
+        for sel in (real, np.zeros(lines.n, np.int32),
+                    rng.integers(0, 3, lines.n).astype(np.int32)):
+            out = paste_cuda.paste_lines(ct, ci, lines, sel, gmask)
+            _check_equal('paste ragged lines window %d' % window, out,
+                         paste_cuda.paste_lines_plain(ct, ci, lines, sel,
+                                                      gmask))
+            if not torch.equal(out[2], gmask[2]) or \
+                    (not sel.any() and not torch.equal(out, gmask)):
+                raise SystemExit('FAIL: paste changed a page without a '
+                                 'selected line')
+        n_cases += 4
+    empty = lines_cuda.RaggedLines.from_page_boxes([[]] * b, h, w, dev)
+    ect, eci, _ = lines_cuda.line_thresholds(gray, empty, 31)
+    _check_equal('paste with no lines',
+                 paste_cuda.paste_lines(ect, eci, empty, [], gmask), gmask)
+    n_cases += 1
     torch.cuda.synchronize()
     print('phase 2b: %d odd-shape cases, kernel == plain' % n_cases)
 
 
-def _write_book(tmp, pages):
+def _write_book(tmp, name, pages, wds):
+    """Page PNGs plus an hOCR file whose lines are ``wds``' line boxes
+    (one word a line; none when wds holds empty pages)."""
     from PIL import Image
     fx = _tests_module('fixtures')
     hocr = []
-    for i, page in enumerate(pages):
-        Image.fromarray(page).save(os.path.join(tmp, 'page_%04d.png' % i))
-        hocr.append(fx.words_to_hocr_page([], page.shape[1], page.shape[0],
-                                          page_no=i, dpi=DPI))
-    hocr_path = os.path.join(tmp, 'book.hocr')
+    for i, (page, wd) in enumerate(zip(pages, wds)):
+        Image.fromarray(page).save(os.path.join(tmp, '%s_%04d.png'
+                                                % (name, i)))
+        words = [tuple(line['bbox']) + ('synthword',)
+                 for para in wd for line in para['lines']]
+        hocr.append(fx.words_to_hocr_page(words, page.shape[1],
+                                          page.shape[0], page_no=i,
+                                          dpi=DPI))
+    hocr_path = os.path.join(tmp, name + '.hocr')
     with open(hocr_path, 'w', encoding='utf-8') as fp:
         fp.write(fx.HOCR_TEMPLATE % '\n'.join(hocr))
-    return os.path.join(tmp, 'page_*.png'), hocr_path
+    return os.path.join(tmp, name + '_*.png'), hocr_path
 
 
-def phase_e2e(pages, tmp):
+def run_book(tmp, name, pages, wds, extra, need):
+    """One recode_pdf_torch CLI run; the launch counts of that run must
+    reach ``need``.  Returns the counts."""
     from archive_pdf_tools_tpu.validators import validate_pdfa  # jax-free
     from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
-    from archive_pdf_tools_tpu_torch.ops import (optimise_cuda, denoise_cuda,
-                                                 threshold_cuda)
-    glob_pat, hocr_path = _write_book(tmp, pages)
-    out = os.path.join(tmp, 'book.pdf')
-    counters = {'blur_sauvola': threshold_cuda.blur_sauvola,
-                'despeckle': denoise_cuda.fast_mask_denoise,
-                'optimise': optimise_cuda.optimise}
-    print('phase 3: recode_pdf_torch, %d pages of %dx%d at %d DPI'
-          % (len(pages), H, W, DPI))
+    glob_pat, hocr_path = _write_book(tmp, name, pages, wds)
+    out = os.path.join(tmp, name + '.pdf')
+    counters = {name: getattr(_wrapper_module(name), KERNELS[name][1])
+                for name in KERNELS}
+    n_lines = sum(len(para['lines']) for wd in wds for para in wd)
+    print('phase 3: recode_pdf_torch %s, %d pages of %dx%d at %d DPI, '
+          '%d hOCR lines' % (' '.join(extra) or '(default flags)',
+                             len(pages), H, W, DPI, n_lines))
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
     rc = main(['--from-imagestack', glob_pat, '--hocr-file', hocr_path,
-               '--dpi', str(DPI), '-o', out, '-v'])
+               '--dpi', str(DPI), '-o', out, '-v', '--device', DEV]
+              + list(extra))
     wall = time.time() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     if rc != 0:
@@ -253,40 +435,43 @@ def phase_e2e(pages, tmp):
           'PDF/A valid; launches %s'
           % (wall, len(pages) / wall, insize / os.path.getsize(out),
              launches))
-    need = {'blur_sauvola': 2, 'despeckle': 2, 'optimise': 4}
     for k, n in need.items():
         if launches[k] < n:
-            raise SystemExit('FAIL: %s launched %d times on the main path, '
+            raise SystemExit('FAIL: %s launched %d times on the path, '
                              'expected >= %d' % (k, launches[k], n))
     return launches
 
 
 def phase_small_book(tmp):
     """The card and the CPU's plain versions give the same PDF bytes on
-    noise-free pages (identity blur taps: float exp and sum order, which
-    may differ between CPU and GPU libraries, never enter)."""
+    a noise-free worded book (identity blur taps: float exp and sum
+    order, which may differ between CPU and GPU libraries, never
+    enter)."""
     from PIL import Image
     from archive_pdf_tools_tpu_torch import recode
     fx = _tests_module('fixtures')
     os.environ['SOURCE_DATE_EPOCH'] = '1700000000'
     hocr = []
     for i in range(3):
-        img, _ = fx.render_book_page(320, 416, seed=i, rgb=i == 1, noise=0)
+        img, words = fx.render_book_page(320, 416, seed=i, rgb=i == 1,
+                                         noise=0)
         Image.fromarray(img).save(os.path.join(tmp, 'small_%04d.png' % i))
-        hocr.append(fx.words_to_hocr_page([], 320, 416, page_no=i, dpi=100))
+        hocr.append(fx.words_to_hocr_page(words, 320, 416, page_no=i,
+                                          dpi=100))
     hocr_path = os.path.join(tmp, 'small.hocr')
     with open(hocr_path, 'w', encoding='utf-8') as fp:
         fp.write(fx.HOCR_TEMPLATE % '\n'.join(hocr))
     outs = {}
-    for dev in ('cuda:0', 'cpu'):
-        outs[dev] = os.path.join(tmp, 'small_%s.pdf' % dev.split(':')[0])
+    for dev in (DEV, 'cpu'):
+        outs[dev] = os.path.join(tmp, 'small_%s.pdf'
+                                 % ('card' if dev == DEV else 'cpu'))
         recode(from_imagestack=os.path.join(tmp, 'small_*.png'),
                hocr_file=hocr_path, out_pdf=outs[dev], dpi=100, jbig2=True,
                device=dev)
-    with open(outs['cuda:0'], 'rb') as a, open(outs['cpu'], 'rb') as b:
+    with open(outs[DEV], 'rb') as a, open(outs['cpu'], 'rb') as b:
         same = a.read() == b.read()
-    print('phase 3b: 3-page noise-free book, card vs CPU plain path: %s'
-          % ('byte-identical' if same else 'DIFFERENT'))
+    print('phase 3b: 3-page noise-free worded book, card vs CPU plain '
+          'path: %s' % ('byte-identical' if same else 'DIFFERENT'))
     if not same:
         raise SystemExit('FAIL: card and CPU recode differ')
 
@@ -300,29 +485,29 @@ def main():
     sys.path.insert(0, ROOT)
     smi = phase_build()
     t0 = time.time()
-    pages = make_pages(N_PAGES)
+    book = make_pages()
+    pages = [p for p, _ in book]
+    wds = [wd for _, wd in book]
     print('made %d pages in %.1f s' % (N_PAGES, time.time() - t0))
-    kernels = phase_kernels(pages)
+    kernels = phase_kernels(pages[:BATCH], wds[:BATCH])
     phase_odd_shapes()
+    every = {'blur_sauvola': 2, 'despeckle': 2, 'optimise': 4}
+    lined = dict(every, line_sauvola=2, paste=2)
     with tempfile.TemporaryDirectory(prefix='chip_smoke') as tmp:
-        launches = phase_e2e(pages, tmp)
+        launches = run_book(tmp, 'book', pages, wds, [], lined)
+        run_book(tmp, 'bgds', pages, wds, ['--bg-downsample', '3'], lined)
+        run_book(tmp, 'noword', pages[:BATCH], [[]] * BATCH, [],
+                 dict(every, blur_sauvola=1, despeckle=1, optimise=2))
         phase_small_book(tmp)
     if 'jax' in sys.modules:
         raise SystemExit('FAIL: jax was imported')
 
-    src = {'optimise': ('archive_pdf_tools_tpu_torch/csrc/optimise.cu',
-                        'archive_pdf_tools_tpu/ops/optimise_pallas.py:232'),
-           'despeckle': ('archive_pdf_tools_tpu_torch/csrc/despeckle.cu',
-                         'archive_pdf_tools_tpu/ops/denoise_pallas.py:349'),
-           'blur_sauvola': ('archive_pdf_tools_tpu_torch/csrc/'
-                            'blur_sauvola.cu',
-                            'archive_pdf_tools_tpu/ops/threshold_pallas.py'
-                            ':233')}
     summary = []
     for name, (head, cases) in kernels.items():
         summary.append({
-            'name': name, 'route': 'cuda', 'source': src[name][0],
-            'replaces': src[name][1], 'launches': launches[name],
+            'name': name, 'route': 'cuda',
+            'source': 'archive_pdf_tools_tpu_torch/csrc/%s.cu' % name,
+            'replaces': KERNELS[name][2], 'launches': launches[name],
             'max_abs_err': max(c['max_abs_err'] for c in cases),
             'ms': head['ms'], 'plain_ms': head['plain_ms']})
     print(smi)

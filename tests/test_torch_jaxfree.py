@@ -1,5 +1,6 @@
-"""The PyTorch port never imports jax, and its main path needs no lxml
-(GPU machines may not ship it)."""
+"""The PyTorch port never imports jax, and its main path (hOCR lines
+and layer downsampling included) needs no lxml (GPU machines may not
+ship it)."""
 
 import os
 import subprocess
@@ -14,6 +15,8 @@ import archive_pdf_tools_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
+for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize'):
+    assert pkg.__name__ + '.' + name in names, name
 print(len(names), 'jax' in sys.modules)
 '''
 
@@ -30,13 +33,14 @@ from fixtures import render_book_page, words_to_hocr_page, HOCR_TEMPLATE
 from archive_pdf_tools_tpu.validators import validate_pdfa
 from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
 tmp = %(tmp)r
-img, _ = render_book_page(200, 260, seed=0, noise=0)
+img, words = render_book_page(200, 260, seed=0, noise=0)
+assert words
 Image.fromarray(img).save(tmp + '/page_0000.png')
 with open(tmp + '/book.hocr', 'w') as fp:
-    fp.write(HOCR_TEMPLATE %% words_to_hocr_page([], 200, 260, dpi=100))
+    fp.write(HOCR_TEMPLATE %% words_to_hocr_page(words, 200, 260, dpi=100))
 rc = main(['--from-imagestack', tmp + '/page_*.png', '--hocr-file',
            tmp + '/book.hocr', '--dpi', '100', '-o', tmp + '/out.pdf',
-           '--device', 'cpu', '--threads', '2'])
+           '--device', 'cpu', '--threads', '2', '--bg-downsample', '3'])
 validate_pdfa(tmp + '/out.pdf')
 print('rc', rc)
 '''
@@ -54,7 +58,7 @@ def test_port_imports_no_jax():
                        timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     n, has_jax = r.stdout.split()
-    assert int(n) >= 15
+    assert int(n) >= 18
     assert has_jax == 'False'
 
 

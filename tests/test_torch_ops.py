@@ -27,6 +27,9 @@ from archive_pdf_tools_tpu_torch.ops.optimise_cuda import optimise
 from archive_pdf_tools_tpu_torch.ops.denoise_cuda import fast_mask_denoise
 from archive_pdf_tools_tpu_torch.ops.threshold_cuda import (
     blur_sauvola, separable_blur)
+from archive_pdf_tools_tpu_torch.ops.lines_cuda import (RaggedLines,
+                                                        line_thresholds)
+from archive_pdf_tools_tpu_torch.ops.paste_cuda import paste_lines
 from archive_pdf_tools_tpu_torch.ops.sigma import estimate_noise
 from archive_pdf_tools_tpu_torch.ops.sauvola import sauvola_mask
 from archive_pdf_tools_tpu_torch.mrc import decompose as TD
@@ -185,6 +188,37 @@ def test_blur_sauvola_matches_scipy_and_pallas_interpret():
     assert (pallas == got).mean() >= 0.9999  # folded vs unfolded tap order
 
 
+def bright_page(h, w, seed=0):
+    """Bright paper (240-255) with mid-grey (150) strokes: a window of it
+    has a sum of squares near 65025 * window^2."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(240, 256, (h, w)).astype(np.uint8)
+    for y in range(8, h - 8, 23):
+        for x in range(10, w - 14, 9):
+            img[y:y + 5, x:x + 4] = 150
+    return img
+
+
+@pytest.mark.parametrize('window', [183, 201])
+def test_sauvola_mask_large_window_matches_jax(window):
+    # past 2^31 for window >= 183: the port keeps the sum of squares
+    # exact (int64 here, uint32 in the kernel), like the JAX package
+    from archive_pdf_tools_tpu.ops.sauvola import sauvola_mask as jax_sauvola
+    img = bright_page(260, 300)[None]
+    got = sauvola_mask(_t(img), window, window, 0.34).numpy()
+    assert (got == np.asarray(jax_sauvola(img, window, window, 0.34))).all()
+    assert got.any()                  # the strokes are ink
+    ident = _identity(1, 4)
+    assert (blur_sauvola(_t(img), _t(ident), window).numpy() == got).all()
+
+
+def test_blur_sauvola_refuses_window_over_uint32_limit():
+    img = _t(bright_page(40, 60)[None])
+    blur_sauvola(img, _t(_identity(1, 4)), 255)
+    with pytest.raises(ValueError, match='limit'):
+        blur_sauvola(img, _t(_identity(1, 4)), 257)
+
+
 @pytest.mark.parametrize('k', [0.34, 0.1, -0.2])
 def test_sauvola_mask_matches_jax(k):
     from archive_pdf_tools_tpu.ops.sauvola import sauvola_mask as jax_sauvola
@@ -246,13 +280,20 @@ def test_gray_601_matches_jax():
             == np.asarray(JD.gray_601(rgb))).all()
 
 
-@pytest.mark.parametrize('call', ['optimise', 'despeckle', 'blur_sauvola'])
+@pytest.mark.parametrize('call', ['optimise', 'despeckle', 'blur_sauvola',
+                                  'line_thresholds', 'paste_lines'])
 def test_wrappers_reject_bad_inputs(call):
     img = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    lines = RaggedLines([[1, 3, 2, 6]], [0], 1, 8, 8, 'cpu')
     with pytest.raises((TypeError, ValueError)):
         if call == 'optimise':
             optimise(img, img, 3)                       # uint8 mask
         elif call == 'despeckle':
             fast_mask_denoise(img, 4, 2)                # uint8 mask
-        else:
+        elif call == 'blur_sauvola':
             blur_sauvola(img, torch.ones((1, 4)), 15)   # even tap count
+        elif call == 'line_thresholds':
+            line_thresholds(img[:, :4], lines, 15)      # not the laid-out page
+        else:
+            crop = torch.zeros(8, dtype=torch.uint8)
+            paste_lines(crop, crop, lines, [3], img.bool())  # selector 3

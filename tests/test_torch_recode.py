@@ -1,7 +1,9 @@
 """The PyTorch port's recode() and CLI held against the JAX package's.
 
-SOURCE_DATE_EPOCH pins the emitted timestamps, so on a noise-free book
-whose hOCR holds no words the two pipelines must write the same bytes.
+SOURCE_DATE_EPOCH pins the emitted timestamps and the port's Producer is
+set to the JAX package's, so on a noise-free book (with or without hOCR
+words; its line boxes do not overlap) the two pipelines must write the
+same bytes.
 """
 
 import os
@@ -12,8 +14,13 @@ import pytest
 import torch
 from PIL import Image
 
-from archive_pdf_tools_tpu.validators import validate_pdfa
+from archive_pdf_tools_tpu.const import PRODUCER as JAX_PRODUCER
 from archive_pdf_tools_tpu.inputs import hocr as jax_hocr
+from archive_pdf_tools_tpu.pdf.reader import PdfReader
+from archive_pdf_tools_tpu.validators import validate_pdfa
+
+import archive_pdf_tools_tpu_torch
+from archive_pdf_tools_tpu_torch.pipeline import recode as port_recode
 
 from archive_pdf_tools_tpu_torch.inputs import hocr as port_hocr
 
@@ -25,20 +32,35 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _no_word_book(tmp_path, n_pages=3, mode='L'):
-    """Noise-free pages with empty hOCR; page 1 in ``mode``."""
+def _no_word_book(tmp_path, n_pages=3, mode='L', words=False):
+    """Noise-free pages with empty hOCR (or, with ``words``, the words
+    drawn); page 1 in ``mode``."""
     hocr = []
     for i in range(n_pages):
-        img, _ = render_book_page(320, 416, seed=i, noise=0,
-                                  rgb=i == 1 and mode == 'RGB')
+        img, wds = render_book_page(320, 416, seed=i, noise=0,
+                                    rgb=i == 1 and mode == 'RGB')
         im = Image.fromarray(img)
         if i == 1 and mode == '1':
             im = im.convert('1')
         im.save(str(tmp_path / ('page_%04d.png' % i)))
-        hocr.append(words_to_hocr_page([], 320, 416, page_no=i, dpi=100))
+        hocr.append(words_to_hocr_page(wds if words else [], 320, 416,
+                                       page_no=i, dpi=100))
     hocr_path = tmp_path / 'book.hocr'
     hocr_path.write_text(HOCR_TEMPLATE % '\n'.join(hocr), encoding='utf-8')
     return str(tmp_path / 'page_*.png'), str(hocr_path)
+
+
+def _image_sizes(pdf):
+    """Per page, the sorted (width, height) of its image XObjects."""
+    rd = PdfReader(pdf)
+    return [sorted((int(rd.resolve(im.dict['Width'])),
+                    int(rd.resolve(im.dict['Height'])))
+                   for _, _, im in rd.page_images(i))
+            for i in range(rd.page_count())]
+
+
+def _as_text(v):
+    return v.decode() if isinstance(v, bytes) else str(v)
 
 
 @pytest.mark.parametrize('mode,image_mode', [('L', 2), ('RGB', 2),
@@ -48,6 +70,7 @@ def test_recode_byte_identical_with_jax(tmp_path, monkeypatch, mode,
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     from archive_pdf_tools_tpu_torch import recode
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
+    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
     glob_pat, hocr_path = _no_word_book(tmp_path, mode=mode)
     ours, ref = tmp_path / 'torch.pdf', tmp_path / 'jax.pdf'
     kw = dict(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
@@ -57,6 +80,81 @@ def test_recode_byte_identical_with_jax(tmp_path, monkeypatch, mode,
     assert res['compression_ratio'] > 0
     validate_pdfa(str(ours))
     assert ours.read_bytes() == ref.read_bytes()
+
+
+def test_worded_book_byte_identical_with_jax(tmp_path, monkeypatch):
+    from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
+    from archive_pdf_tools_tpu_torch import recode
+    monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
+    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    glob_pat, hocr_path = _no_word_book(tmp_path, mode='RGB', words=True)
+    ours, ref = tmp_path / 'torch.pdf', tmp_path / 'jax.pdf'
+    kw = dict(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
+              jbig2=True)
+    recode(out_pdf=str(ours), device='cpu', **kw)
+    jax_recode(out_pdf=str(ref), **kw)
+    validate_pdfa(str(ours))
+    assert ours.read_bytes() == ref.read_bytes()
+
+
+def test_producer_names_the_torch_engine(tmp_path, monkeypatch):
+    from archive_pdf_tools_tpu_torch import recode
+    glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=1, words=True)
+    out = tmp_path / 'o.pdf'
+    recode(from_imagestack=glob_pat, hocr_file=hocr_path, out_pdf=str(out),
+           dpi=100, jbig2=True, device='cpu')
+    validate_pdfa(str(out))
+    ours = archive_pdf_tools_tpu_torch.PRODUCER
+    assert 'PyTorch' in ours and ours != JAX_PRODUCER
+    rd = PdfReader(str(out))
+    assert _as_text(rd.info()['Producer']) == ours
+    xmp = _as_text(rd.xmp_metadata())
+    assert '<pdf:Producer>%s</pdf:Producer>' % ours in xmp
+    assert '<xmp:CreatorTool>%s</xmp:CreatorTool>' % ours in xmp
+    assert JAX_PRODUCER not in xmp
+    # a CreatorTool the caller gives is kept
+    recode(from_imagestack=glob_pat, hocr_file=hocr_path, out_pdf=str(out),
+           dpi=100, jbig2=True, device='cpu', metadata_creatortool='scanner')
+    xmp = _as_text(PdfReader(str(out)).xmp_metadata())
+    assert '<xmp:CreatorTool>scanner</xmp:CreatorTool>' in xmp
+    assert '<pdf:Producer>%s</pdf:Producer>' % ours in xmp
+    validate_pdfa(str(out))
+
+
+def test_bg_downsample_cli_matches_jax_dims(tmp_path):
+    from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
+    glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=2, words=True)
+    out = tmp_path / 'cli.pdf'
+    cmd = [sys.executable, os.path.join(ROOT, 'bin', 'recode_pdf_torch'),
+           '--from-imagestack', glob_pat, '--hocr-file', hocr_path,
+           '--dpi', '100', '-o', str(out), '--threads', '2',
+           '--bg-downsample', '3', '--device', 'cpu']
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, OMP_NUM_THREADS='2'))
+    assert r.returncode == 0, r.stderr[-2000:]
+    validate_pdfa(str(out))
+    ref = tmp_path / 'jax.pdf'
+    jax_recode(from_imagestack=glob_pat, hocr_file=hocr_path,
+               out_pdf=str(ref), dpi=100, bg_downsample=3)
+    sizes = _image_sizes(str(out))
+    assert sizes == _image_sizes(str(ref))
+    assert all((106, 138) in page for page in sizes)   # 320x416 / 3
+
+
+def test_hq_page_keeps_full_layers_in_a_downsampled_batch(tmp_path):
+    from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
+    from archive_pdf_tools_tpu_torch import recode
+    glob_pat, hocr_path = _no_word_book(tmp_path, words=True)
+    kw = dict(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
+              bg_downsample=3, fg_downsample=2, hq_pages='2')
+    ours, ref = str(tmp_path / 'torch.pdf'), str(tmp_path / 'jax.pdf')
+    recode(out_pdf=ours, device='cpu', **kw)
+    validate_pdfa(ours)
+    jax_recode(out_pdf=ref, **kw)
+    sizes = _image_sizes(ours)
+    assert sizes == _image_sizes(ref)
+    assert sizes[1] == [(320, 416), (320, 416)]     # the HQ page: bg, fg
+    assert sizes[0] == [(106, 138), (160, 208)]
 
 
 def test_resume_from_out_dir_gives_same_bytes(tmp_path, monkeypatch):
@@ -102,23 +200,55 @@ def test_cli_recodes_on_cpu_and_refuses_without_gpu(tmp_path):
     {'jbig2_symbol_mode': True},
     {'jbig2_bands': 2},
 ])
-def test_unported_options_raise(tmp_path, kw):
+def test_unported_options_raise(tmp_path, monkeypatch, kw):
+    """The downsampling options are ported now: each runs on a worded
+    book and gives the JAX package's PDF (the bytes with ``downsample``,
+    where the page shrinks on the host; the image sizes where a layer
+    shrinks on the device, whose float sums may differ by 1 LSB).  The
+    other options still raise."""
     from archive_pdf_tools_tpu_torch import recode
     args = dict(from_imagestack=str(tmp_path / '*.png'),
                 hocr_file=str(tmp_path / 'x.hocr'),
                 out_pdf=str(tmp_path / 'o.pdf'), device='cpu')
     args.update(kw)
-    with pytest.raises(NotImplementedError):
-        recode(**args)
+    if not any(k.endswith('downsample') for k in kw):
+        with pytest.raises(NotImplementedError):
+            recode(**args)
+        return
+    from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
+    monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
+    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=2, words=True)
+    args.update(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
+                jbig2=True)
+    recode(**args)
+    validate_pdfa(args['out_pdf'])
+    ref = str(tmp_path / 'jax.pdf')
+    del args['device']
+    jax_recode(**dict(args, out_pdf=ref))
+    assert _image_sizes(args['out_pdf']) == _image_sizes(ref)
+    if 'downsample' in kw:
+        with open(args['out_pdf'], 'rb') as a, open(ref, 'rb') as b:
+            assert a.read() == b.read()
 
 
 def test_book_with_words_raises(tmp_path):
+    """Formerly: a book with hOCR words raised.  Now a noisy worded book
+    (``make_book``) recodes to valid PDF/A with the JAX package's page
+    and image sizes."""
+    from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     from archive_pdf_tools_tpu_torch import recode
     glob_pat, hocr_path, _ = make_book(tmp_path, n_pages=2, w=320, h=416,
                                        dpi=100)
-    with pytest.raises(NotImplementedError, match='hOCR line'):
-        recode(from_imagestack=glob_pat, hocr_file=hocr_path,
-               out_pdf=str(tmp_path / 'o.pdf'), dpi=100, device='cpu')
+    out, ref = str(tmp_path / 'o.pdf'), str(tmp_path / 'jax.pdf')
+    res = recode(from_imagestack=glob_pat, hocr_file=hocr_path,
+                 out_pdf=out, dpi=100, device='cpu')
+    validate_pdfa(out)
+    assert res['compression_ratio'] > 1
+    jax_recode(from_imagestack=glob_pat, hocr_file=hocr_path, out_pdf=ref,
+               dpi=100)
+    assert _image_sizes(out) == _image_sizes(ref)
+    assert PdfReader(out).page_size(0) == PdfReader(ref).page_size(0)
 
 
 def test_hocr_reader_matches_lxml_reader(tmp_path):
