@@ -4,11 +4,16 @@ the PyTorch/CUDA port's ``recode``.
 The parser and the per-codec default compression flags are the JAX
 package's own (``build_parser``, ``resolve_compression_flags``; neither
 imports jax).  ``--device`` picks the torch device (default the first
-GPU; ``cpu`` runs the plain PyTorch versions of the kernels).  Flags the
-port does not cover yet end the run with an error naming the flag.
+GPU; ``cpu`` runs the plain PyTorch versions of the kernels).  With
+``--from-pdf`` and no ``--hocr-file``, the input's own text layer is
+extracted as hOCR first.  Flags the port does not cover yet end the run
+with an error naming the flag.
 """
 
+import os
+import shutil
 import sys
+import tempfile
 
 from archive_pdf_tools_tpu.cli.recode_pdf import (build_parser,
                                                   resolve_compression_flags)
@@ -37,14 +42,32 @@ def main(argv=None):
                          'are mutually exclusive\n\n')
         parser.print_help()
         return 1
-    if args.hocr_file is None and args.from_pdf is None:
-        sys.stderr.write('***** Error: --hocr-file is required with '
-                         '--from-imagestack\n\n')
-        parser.print_help()
-        return 1
+    auto_hocr_dir = None
+    if args.hocr_file is None:
+        # with --from-pdf, the input's own text layer, extracted as hOCR
+        # by the shared pdf-to-hocr (no jax, no image decoding)
+        if args.from_pdf is None:
+            sys.stderr.write('***** Error: --hocr-file is required with '
+                             '--from-imagestack\n\n')
+            parser.print_help()
+            return 1
+        from archive_pdf_tools_tpu.cli.pdf_to_hocr import main as hocr_main
+        auto_hocr_dir = tempfile.mkdtemp(prefix='recode_hocr')
+        args.hocr_file = os.path.join(auto_hocr_dir, 'text.hocr')
+        if args.verbose:
+            print('No --hocr-file: extracting the text layer of %s'
+                  % args.from_pdf)
+        if hocr_main(['-f', args.from_pdf, '-o', args.hocr_file]):
+            shutil.rmtree(auto_hocr_dir, ignore_errors=True)
+            sys.stderr.write('***** Error: text-layer extraction failed\n')
+            return 1
 
     args = resolve_compression_flags(args)
-    res = _run_recode(args)
+    try:
+        res = _run_recode(args)
+    finally:
+        if auto_hocr_dir is not None:
+            shutil.rmtree(auto_hocr_dir, ignore_errors=True)
     for error in res['errors']:
         print('Encountered runtime error:', error)
     return 0

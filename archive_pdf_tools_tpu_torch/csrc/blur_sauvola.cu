@@ -36,12 +36,49 @@
 //   JAX package does: exact while Q < 2^32, i.e. window <= 255 (the
 //   wrapper raises above that).  Fusing the passes into one H-tiled
 //   kernel with halos is later work.
+//
+// Ablation builds (-DAPT_ABLATE=APT_ABL_<variant>, one .so each, for
+//   archive_pdf_tools_tpu_torch/tools/threshold_ablate.py; they replace
+//   the TPU tool tools/threshold_ablate.py:189 _build).  Each switches
+//   parts of the four launches off to localise their cost; built with no
+//   define, this file is the shipped kernel:
+//   NO_VMAC    vblur stores the centre pixel (horizontal-only blur);
+//   NO_HMAC    hblur truncates the centre value (vertical-only blur);
+//   NO_BLUR    both: Sauvola on the raw page;
+//   NO_EMIT    colsum and rows skipped; hblur writes the uint8 blurred
+//              page to out;
+//   MACHINERY  the four launches keep their loads and stores and drop
+//              their arithmetic (no MACs, no window sums, no test):
+//              out = img;
+//   U8RING     MACHINERY with the vtmp scratch held as uint8: scratch
+//              bandwidth apart from the float conversion;
+//   PASSTHRU   one copy launch, img -> out: the floor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define COL_ROWS 64
 #define ROW_THREADS 256
+
+#define APT_ABL_FULL 0
+#define APT_ABL_NO_VMAC 1
+#define APT_ABL_NO_HMAC 2
+#define APT_ABL_NO_BLUR 3
+#define APT_ABL_NO_EMIT 4
+#define APT_ABL_MACHINERY 5
+#define APT_ABL_U8RING 6
+#define APT_ABL_PASSTHRU 7
+#ifndef APT_ABLATE
+#define APT_ABLATE APT_ABL_FULL
+#endif
+#define ABL(v) (APT_ABLATE == APT_ABL_##v)
+#define BARE (ABL(MACHINERY) || ABL(U8RING))
+
+#if ABL(U8RING)
+typedef uint8_t vtmp_t;
+#else
+typedef float vtmp_t;
+#endif
 
 __device__ __forceinline__ int sym_index(int p, int n) {
   int q = p % (2 * n);
@@ -51,36 +88,48 @@ __device__ __forceinline__ int sym_index(int p, int n) {
 
 __global__ void vblur_kernel(const uint8_t* __restrict__ img,
                              const float* __restrict__ taps,
-                             float* __restrict__ v, int H, int W, int r) {
+                             vtmp_t* __restrict__ v, int H, int W, int r) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y, b = blockIdx.z;
   if (x >= W) return;
-  const float* wt = taps + (size_t)b * (2 * r + 1);
   const uint8_t* p = img + (size_t)b * H * W + x;
+#if ABL(NO_VMAC) || ABL(NO_BLUR) || BARE
+  v[((size_t)b * H + y) * W + x] = (vtmp_t)p[(size_t)y * W];
+#else
+  const float* wt = taps + (size_t)b * (2 * r + 1);
   float acc = 0.0f;
   for (int t = 0; t <= 2 * r; ++t) {
     const int yy = sym_index(y - r + t, H);
     acc = __fadd_rn(acc, __fmul_rn(wt[t], (float)p[(size_t)yy * W]));
   }
   v[((size_t)b * H + y) * W + x] = acc;
+#endif
 }
 
-__global__ void hblur_kernel(const float* __restrict__ v,
+__global__ void hblur_kernel(const vtmp_t* __restrict__ v,
                              const float* __restrict__ taps,
                              uint8_t* __restrict__ blur, int H, int W,
                              int r) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y, b = blockIdx.z;
   if (x >= W) return;
+  const vtmp_t* row = v + ((size_t)b * H + y) * W;
+#if BARE
+  blur[((size_t)b * H + y) * W + x] = (uint8_t)row[x];
+#else
+#if ABL(NO_HMAC) || ABL(NO_BLUR)
+  const float acc = row[x];
+#else
   const float* wt = taps + (size_t)b * (2 * r + 1);
-  const float* row = v + ((size_t)b * H + y) * W;
   float acc = 0.0f;
   for (int t = 0; t <= 2 * r; ++t) {
     acc = __fadd_rn(acc, __fmul_rn(wt[t], row[sym_index(x - r + t, W)]));
   }
+#endif
   int iv = (int)acc;                 // truncation, like astype(uint8)
   iv = iv < 0 ? 0 : (iv > 255 ? 255 : iv);
   blur[((size_t)b * H + y) * W + x] = (uint8_t)iv;
+#endif
 }
 
 __global__ void colsum_kernel(const uint8_t* __restrict__ blur,
@@ -92,6 +141,13 @@ __global__ void colsum_kernel(const uint8_t* __restrict__ blur,
   const int y1 = min(y0 + COL_ROWS, H);
   const size_t base = (size_t)b * H * W + x;
   const uint8_t* p = blur + base;
+#if BARE
+  for (int y = y0; y < y1; ++y) {    // one load, two stores a pixel
+    const int val = p[(size_t)y * W];
+    scol[base + (size_t)y * W] = val;
+    qcol[base + (size_t)y * W] = val;
+  }
+#else
   int s = 0, q = 0;
   for (int yy = max(y0 - o + 1, 0); yy <= min(y0 + u, H - 1); ++yy) {
     const int val = p[(size_t)yy * W];
@@ -114,6 +170,7 @@ __global__ void colsum_kernel(const uint8_t* __restrict__ blur,
     scol[base + (size_t)y * W] = s;
     qcol[base + (size_t)y * W] = q;
   }
+#endif
 }
 
 __global__ void rows_kernel(const uint8_t* __restrict__ blur,
@@ -121,14 +178,21 @@ __global__ void rows_kernel(const uint8_t* __restrict__ blur,
                             const int* __restrict__ qcol,
                             uint8_t* __restrict__ out, int H, int W, int o,
                             int u, float km1, float k2) {
+  const int y = blockIdx.x, b = blockIdx.y;
+  const size_t rbase = ((size_t)b * H + y) * W;
+#if BARE
+  // the loads and the store of the test, nothing between: out = blur
+  for (int x = threadIdx.x; x < W; x += blockDim.x) {
+    out[rbase + x] = (uint8_t)(scol[rbase + x] ^ qcol[rbase + x]
+                               ^ blur[rbase + x]);
+  }
+#else
   extern __shared__ uint32_t sh[];
   uint32_t* ps = sh;                 // ps[i] = sum of scol[0..i)
   uint32_t* pq = sh + (W + 1);
   uint32_t* tot_s = sh + 2 * (W + 1);
   uint32_t* tot_q = tot_s + ROW_THREADS;
 
-  const int y = blockIdx.x, b = blockIdx.y;
-  const size_t rbase = ((size_t)b * H + y) * W;
   const int chunk = (W + ROW_THREADS - 1) / ROW_THREADS;
   const int c0 = min((int)threadIdx.x * chunk, W);
   const int c1 = min(c0 + chunk, W);
@@ -178,7 +242,17 @@ __global__ void rows_kernel(const uint8_t* __restrict__ blur,
     const float rhs = __fmul_rn(__fmul_rn(__fmul_rn(mean, mean), k2), var);
     out[rbase + x] = (t <= 0.0f || __fmul_rn(t, t) <= rhs) ? 1 : 0;
   }
+#endif
 }
+
+#if ABL(PASSTHRU)
+__global__ void copy_kernel(const uint8_t* __restrict__ img,
+                            uint8_t* __restrict__ out, int H, int W) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t i = ((size_t)blockIdx.z * H + blockIdx.y) * W + x;
+  if (x < W) out[i] = img[i];
+}
+#endif
 
 extern "C" int apt_blur_sauvola(const void* img, const void* taps, void* out,
                                 void* vtmp, void* blur, void* scol,
@@ -186,13 +260,23 @@ extern "C" int apt_blur_sauvola(const void* img, const void* taps, void* out,
                                 int window, float km1, float k2,
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const dim3 pix((W + 255) / 256, H, B);
+#if ABL(PASSTHRU)
+  copy_kernel<<<pix, 256, 0, st>>>((const uint8_t*)img, (uint8_t*)out, H, W);
+#elif ABL(NO_EMIT)                   // hblur writes the blurred page to out
+  vblur_kernel<<<pix, 256, 0, st>>>((const uint8_t*)img, (const float*)taps,
+                                    (vtmp_t*)vtmp, H, W, radius);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  hblur_kernel<<<pix, 256, 0, st>>>((const vtmp_t*)vtmp, (const float*)taps,
+                                    (uint8_t*)out, H, W, radius);
+#else
   const int o = (window + 1) / 2, u = window / 2;
   cudaError_t e;
-  const dim3 pix((W + 255) / 256, H, B);
   vblur_kernel<<<pix, 256, 0, st>>>((const uint8_t*)img, (const float*)taps,
-                                    (float*)vtmp, H, W, radius);
+                                    (vtmp_t*)vtmp, H, W, radius);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  hblur_kernel<<<pix, 256, 0, st>>>((const float*)vtmp, (const float*)taps,
+  hblur_kernel<<<pix, 256, 0, st>>>((const vtmp_t*)vtmp, (const float*)taps,
                                     (uint8_t*)blur, H, W, radius);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const dim3 cols((W + 255) / 256, (H + COL_ROWS - 1) / COL_ROWS, B);
@@ -210,5 +294,6 @@ extern "C" int apt_blur_sauvola(const void* img, const void* taps, void* out,
   rows_kernel<<<dim3(H, B), ROW_THREADS, smem, st>>>(
       (const uint8_t*)blur, (const int*)scol, (const int*)qcol,
       (uint8_t*)out, H, W, o, u, km1, k2);
+#endif
   return (int)cudaGetLastError();
 }

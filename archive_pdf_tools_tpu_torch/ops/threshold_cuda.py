@@ -39,22 +39,40 @@ MAX_WIDTH = (227 * 1024) // 8 - 512
 MAX_WINDOW = 255
 
 
-def separable_blur(img, taps):
-    """img uint8 (B, H, W), taps f32 (B, 2r+1) -> blurred uint8 (B, H, W),
-    truncated like ``astype(uint8)``."""
-    b, h, w = img.shape
+def vertical_pass(x, taps):
+    """f32 (B, H, W) -> its vertical MAC with per-page taps (B, 2r+1)."""
     k = taps.shape[1]
     r = (k - 1) // 2
-    x = img.to(torch.float32)
-    xp = x[:, symmetric_index(h, r, r, img.device)]
+    h = x.shape[1]
+    xp = x[:, symmetric_index(h, r, r, x.device)]
     v = torch.zeros_like(x)
     for t in range(k):
         v = v + taps[:, t, None, None] * xp[:, t:t + h]
-    vp = v[:, :, symmetric_index(w, r, r, img.device)]
-    o = torch.zeros_like(x)
+    return v
+
+
+def horizontal_pass(v, taps):
+    """f32 (B, H, W) -> its horizontal MAC with per-page taps."""
+    k = taps.shape[1]
+    r = (k - 1) // 2
+    w = v.shape[2]
+    vp = v[:, :, symmetric_index(w, r, r, v.device)]
+    o = torch.zeros_like(v)
     for t in range(k):
         o = o + taps[:, t, None, None] * vp[:, :, t:t + w]
+    return o
+
+
+def truncate_u8(o):
+    """f32 -> uint8 truncated like ``astype(uint8)``, clamped to 0-255."""
     return o.to(torch.int32).clamp(0, 255).to(torch.uint8)
+
+
+def separable_blur(img, taps):
+    """img uint8 (B, H, W), taps f32 (B, 2r+1) -> blurred uint8 (B, H, W),
+    truncated like ``astype(uint8)``."""
+    x = img.to(torch.float32)
+    return truncate_u8(horizontal_pass(vertical_pass(x, taps), taps))
 
 
 def blur_sauvola_plain(img, taps, window, k=0.34, R=128.0):

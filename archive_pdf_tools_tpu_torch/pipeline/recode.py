@@ -1,8 +1,9 @@
 """recode(): the end-to-end document pipeline on torch tensors.
 
 Counterpart of the JAX package's ``pipeline/recode.py`` for its main
-path: an image stack plus hOCR, MRC mode, with optional page and layer
-downsampling.  Pass 1 writes one invisible-text page per hOCR page;
+path: an image stack or an existing PDF (``from_pdf``) plus hOCR, MRC
+mode, with optional page and layer downsampling.  Pass 1 writes one
+invisible-text page per hOCR page;
 pass 2 groups the pages into batches of equal shape/mode/dpi on a loader
 thread, runs the MRC decomposition of each batch on the device
 (``mrc/api.py``), encodes mask/fg/bg on a host thread pool while the
@@ -14,6 +15,7 @@ Options the port does not cover yet raise ``NotImplementedError`` naming
 the flag; nothing silently runs something else.
 """
 
+import io
 import json
 import os
 import queue
@@ -44,10 +46,12 @@ from archive_pdf_tools_tpu.codecs.mrc_encode import (
     PackedMask)
 from archive_pdf_tools_tpu.const import PRODUCER as JAX_PRODUCER
 from archive_pdf_tools_tpu.pdf.builder import DocumentBuilder
+from archive_pdf_tools_tpu.pdf.reader import PdfReader
 from archive_pdf_tools_tpu.pdf.writer import Name
 from archive_pdf_tools_tpu.pipeline.timing import get_timing_summary, Reporter
 
 from .. import PRODUCER
+from ..inputs.scandata import Scandata
 from ..mrc.api import decompose_masks, decompose_layers
 from ..utils.backend import (pack_mask_bits, resolve_device,
                              unpack_mask_bits)
@@ -94,13 +98,13 @@ def _page_geometry(imwidth, imheight, page_dpi, per_page_dpi, doc_dpi,
     return page_width, imheight * scaler, ppi
 
 
-def create_text_pages(builder, hocr_file, image_files, dpi=None,
-                      skip_pages=None, dpi_pages=None, reporter=None,
-                      verbose=False, stop_after=None,
+def create_text_pages(builder, hocr_file, in_pdf=None, image_files=None,
+                      dpi=None, skip_pages=None, dpi_pages=None,
+                      reporter=None, verbose=False, stop_after=None,
                       jpeg2000_implementation=JPEG2000_IMPL_PILLOW,
                       errors=None):
     """Pass 1 (``recode.py:87-234``): one invisible-text page per hOCR
-    page, sized from the image dims + DPI policy."""
+    page, honoring input-PDF page sizes or image dims + DPI policy."""
     skipped_pages = 0
     count = 0
     t0 = time()
@@ -114,25 +118,33 @@ def create_text_pages(builder, hocr_file, image_files, dpi=None,
         if stop_after is not None and (idx - skipped_pages) >= stop_after:
             break
 
-        imgfile = image_files[idx]   # do not subtract skipped pages
-        if imgfile.endswith('.jp2'):
-            size, _ = get_jpeg2000_info(imgfile, jpeg2000_implementation,
-                                        errors)
-            imwidth, imheight = size
-        else:
-            with Image.open(imgfile) as img:
-                imwidth, imheight = img.size
+        if in_pdf is not None:
+            width, height = in_pdf.page_size(idx - skipped_pages)
+            scaler = width / w
+            ppi = 72 / scaler
+        elif image_files is not None:
+            imgfile = image_files[idx]   # do not subtract skipped pages
+            if imgfile.endswith('.jp2'):
+                size, _ = get_jpeg2000_info(imgfile,
+                                            jpeg2000_implementation, errors)
+                imwidth, imheight = size
+            else:
+                with Image.open(imgfile) as img:
+                    imwidth, imheight = img.size
 
-        page_dpi = dpi
-        per_page_dpi = None
-        if dpi_pages is not None:
-            try:
-                per_page_dpi = int(dpi_pages[idx - skipped_pages])
-                page_dpi = per_page_dpi
-            except (TypeError, ValueError, IndexError):
-                pass
-        width, height, ppi = _page_geometry(
-            imwidth, imheight, page_dpi, per_page_dpi, dpi, verbose, errors)
+            page_dpi = dpi
+            per_page_dpi = None
+            if dpi_pages is not None:
+                try:
+                    per_page_dpi = int(dpi_pages[idx - skipped_pages])
+                    page_dpi = per_page_dpi
+                except (TypeError, ValueError, IndexError):
+                    pass
+            width, height, ppi = _page_geometry(
+                imwidth, imheight, page_dpi, per_page_dpi, dpi,
+                verbose, errors)
+        else:
+            raise ValueError('need in_pdf or image_files')
 
         if hocr_dpi is not None:
             font_scaler = hocr_dpi / ppi
@@ -150,6 +162,58 @@ def create_text_pages(builder, hocr_file, image_files, dpi=None,
     return count
 
 
+def _decode_pdf_image(reader, stream):
+    """Decode a page image XObject to PIL (``recode.py:323-332`` uses
+    PyMuPDF extract_image; we decode per filter: DCT/JPX via Pillow,
+    JBIG2 via the in-tree decoder, CCITT G4 via libtiff, Flate raw)."""
+    raw, filt, w, h, cs = reader.extract_image(stream)
+    if filt in ('DCTDecode', 'JPXDecode', None) or filt is None:
+        try:
+            image = Image.open(io.BytesIO(raw))
+            image.load()
+            return image
+        except Exception:
+            pass
+    if filt == 'JBIG2Decode':
+        from archive_pdf_tools_tpu.codecs.jbig2 import decode_jbig2
+        bits = decode_jbig2(raw, w, h)
+        # jbig2 white (0) = ink-opaque; a /Decode [1 0] array (symbol-
+        # coded masks store ink as jbig2 black) flips the polarity
+        dec = reader.resolve(stream.dict.get('Decode'))
+        if dec and float(reader.resolve(dec[0])) == 1.0:
+            return Image.fromarray(bits)
+        return Image.fromarray(~bits)
+    if filt == 'CCITTFaxDecode':
+        # sample bits per /K //EncodedByteAlign //BlackIs1 (foreign G3
+        # faxes and default-polarity G4 both appear in the wild; our
+        # own masks carry /BlackIs1 true so nothing changes for them)
+        from archive_pdf_tools_tpu.codecs.ccitt import (decode_ccitt,
+                                                        pdf_fax_params)
+        k, ba, b1 = pdf_fax_params(reader.resolve, stream.dict)
+        bits = decode_ccitt(raw, w, h, k=k, byte_align=ba,
+                            black_is_1=b1)
+        dec = reader.resolve(stream.dict.get('Decode'))
+        if dec and float(reader.resolve(dec[0])) == 1.0:
+            bits = ~bits
+        return Image.fromarray(bits)
+    # FlateDecode or already-decoded raw samples
+    data = stream.decoded()
+    bpc = reader.resolve(stream.dict.get('BitsPerComponent')) or 8
+    if bpc == 8 and cs == 'DeviceRGB' and len(data) >= w * h * 3:
+        arr = np.frombuffer(data[:w * h * 3], np.uint8).reshape(h, w, 3)
+        return Image.fromarray(arr)
+    if bpc == 8 and len(data) >= w * h:
+        arr = np.frombuffer(data[:w * h], np.uint8).reshape(h, w)
+        return Image.fromarray(arr)
+    if bpc == 1:
+        stride = (w + 7) // 8
+        arr = np.unpackbits(
+            np.frombuffer(data[:stride * h], np.uint8).reshape(h, stride),
+            axis=1)[:, :w]
+        return Image.fromarray(arr.astype(bool))
+    raise ValueError('cannot decode page image (filter %r)' % (filt,))
+
+
 class PageJob:
     __slots__ = ('page_idx', 'src_idx', 'word_data', 'dpi', 'hq')
 
@@ -161,26 +225,42 @@ class PageJob:
         self.hq = hq
 
 
-def _load_page_image(image_files, src_idx, downsample,
+def _load_page_image(in_pdf, image_files, src_idx, downsample,
                      jpeg2000_implementation, threads, debug, timing_data):
-    """Image load policy (``recode.py:318-372``, image stacks only):
-    ``--downsample`` reduces JPEG2000 pages in the decoder and shrinks
-    other pages with a LANCZOS thumbnail on the host."""
+    """Image load policy (``recode.py:318-372``): a source PDF page's one
+    image decoded, or a multi-image page rendered whole; an image-stack
+    file read.  ``--downsample`` reduces JPEG2000 files in the decoder
+    and shrinks other pages with a LANCZOS thumbnail on the host."""
     t = time()
-    imgfile = image_files[src_idx]
     downsampled = False
-    if imgfile.endswith(('.jp2', '.jpx')):
-        image = decode_jpeg2000(imgfile, reduce_=downsample,
-                                impl=jpeg2000_implementation,
-                                threads=threads, debug=debug)
-        downsampled = bool(downsample)
+    if in_pdf is not None:
+        imgs = in_pdf.page_images(src_idx)
+        if not imgs:
+            raise ValueError('page %d has no images' % src_idx)
+        if len(imgs) == 1:
+            _, _, stream = imgs[0]
+            image = _decode_pdf_image(in_pdf, stream)
+        else:
+            # multi-image page: all images and marks rendered whole at
+            # the largest image's resolution; 'L' or 'RGB' for the MRC
+            from ..pdf.raster import render_page_image
+            image = render_page_image(in_pdf, src_idx)
+            if image.mode == '1':
+                image = image.convert('L')
     else:
-        image = Image.open(imgfile)
-        image.load()
-    if image.mode == 'RGBA':
-        image = image.convert('RGB')
-    elif image.mode == 'LA':
-        image = image.convert('L')
+        imgfile = image_files[src_idx]
+        if imgfile.endswith(('.jp2', '.jpx')):
+            image = decode_jpeg2000(imgfile, reduce_=downsample,
+                                    impl=jpeg2000_implementation,
+                                    threads=threads, debug=debug)
+            downsampled = bool(downsample)
+        else:
+            image = Image.open(imgfile)
+            image.load()
+        if image.mode == 'RGBA':
+            image = image.convert('RGB')
+        elif image.mode == 'LA':
+            image = image.convert('L')
     if timing_data is not None:
         timing_data.append(('image_load', time() - t))
 
@@ -274,8 +354,8 @@ def _write_artifacts(img_dir, job, image_mode, em, eb, ef):
         json.dump(meta, fp)
 
 
-def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
-                      dpi_pages=None, bg_compression_flags=None,
+def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
+                      dpi=None, dpi_pages=None, bg_compression_flags=None,
                       fg_compression_flags=None, skip_pages=None,
                       img_dir=None, jbig2=True, downsample=None,
                       bg_downsample=None, fg_downsample=None,
@@ -431,9 +511,11 @@ def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
             for job in jobs:
                 if stop_loading.is_set():
                     return
-                image = _load_page_image(image_files, job.src_idx,
-                                         downsample, jpeg2000_implementation,
-                                         threads, debug, timing_data)
+                image = _load_page_image(
+                    in_pdf, image_files,
+                    job.src_idx if image_files else job.page_idx,
+                    downsample, jpeg2000_implementation, threads, debug,
+                    timing_data)
                 key = (image.size,
                        image.mode if image.mode in ('1', 'L', 'RGB')
                        else 'RGB', job.dpi)
@@ -510,13 +592,12 @@ def insert_images_mrc(builder, hocr_file, image_files, dpi=None,
     return timing_data
 
 
-def _reject_unported(from_pdf, image_mode, grayscale_pdf,
-                     force_1bit_output, jpeg2000_implementation,
-                     jbig2_symbol_mode, jbig2_bands, profile_dir):
+def _reject_unported(image_mode, grayscale_pdf, force_1bit_output,
+                     jpeg2000_implementation, jbig2_symbol_mode, jbig2_bands,
+                     profile_dir):
     """Options off the ported slice raise; none silently runs another
     path."""
     unported = [
-        (from_pdf is not None, '--from-pdf'),
         (image_mode not in (IMAGE_MODE_MRC, IMAGE_MODE_SKIP),
          '--image-mode %s' % (image_mode,)),
         (jpeg2000_implementation == JPEG2000_IMPL_TPU, '-J tpu'),
@@ -532,22 +613,17 @@ def _reject_unported(from_pdf, image_mode, grayscale_pdf,
                 '%s: not ported to archive_pdf_tools_tpu_torch yet' % flag)
 
 
-def _stamp_producer(builder, default_creatortool):
-    """Name this engine in Info /Producer and in the XMP's pdf:Producer
-    and, unless the caller gave one, xmp:CreatorTool: the shared builder
-    stamps the JAX package's ``const.PRODUCER``.  Info and XMP must
-    agree for PDF/A."""
-    theirs = xmlescape(JAX_PRODUCER)
-    ours = xmlescape(PRODUCER)
-    tags = ['pdf:Producer'] + (['xmp:CreatorTool'] if default_creatortool
-                               else [])
-    for tag in tags:
-        old = '<%s>%s</%s>' % (tag, theirs, tag)
-        if builder.xmp.count(old) != 1:
-            raise RuntimeError('XMP lacks one %s' % old)
-        builder.xmp = builder.xmp.replace(old, '<%s>%s</%s>'
-                                          % (tag, ours, tag))
+def _stamp_producer(builder):
+    """Name this engine where the shared builder names the JAX package
+    (``const.PRODUCER``): Info /Producer always, and each occurrence in
+    the XMP.  The builder's own XMP holds it in pdf:Producer and in a
+    default xmp:CreatorTool, so Info and XMP agree, as PDF/A asks; an
+    XMP carried over from a source PDF is kept as the JAX ``recode()``
+    keeps it and may hold it any number of times, or none."""
     builder.info[Name('Producer')] = PRODUCER
+    if builder.xmp is not None:
+        builder.xmp = builder.xmp.replace(xmlescape(JAX_PRODUCER),
+                                          xmlescape(PRODUCER))
 
 
 def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
@@ -574,11 +650,11 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     {'errors': set, 'compression_ratio': float}.  Same arguments as the
     JAX package's ``recode`` plus ``device`` (default the first GPU;
     ``'cpu'`` runs the plain PyTorch versions of the kernels)."""
-    _reject_unported(from_pdf, image_mode, grayscale_pdf,
-                     force_1bit_output, jpeg2000_implementation,
-                     jbig2_symbol_mode, jbig2_bands, profile_dir)
-    if from_imagestack is None:
-        raise ValueError('recode: from_imagestack is required')
+    _reject_unported(image_mode, grayscale_pdf, force_1bit_output,
+                     jpeg2000_implementation, jbig2_symbol_mode, jbig2_bands,
+                     profile_dir)
+    if from_pdf is None and from_imagestack is None:
+        raise ValueError('recode: from_pdf or from_imagestack is required')
     device = resolve_device(device)
     errors = set()
     start_time = time()
@@ -603,7 +679,8 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
         if hq_fg_compression_flags is None:
             hq_fg_compression_flags = dflt[3].split(' ')
 
-    image_files = sorted(glob(from_imagestack))
+    in_pdf = PdfReader(from_pdf) if from_pdf else None
+    image_files = sorted(glob(from_imagestack)) if from_imagestack else None
 
     stop = stop_after
     if stop is not None:
@@ -614,8 +691,6 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     skip_pages = list(skip_pages) if skip_pages else []
     dpi_pages = None
     if scandata_file is not None:
-        # lxml-based; imported only when a scandata file is given
-        from archive_pdf_tools_tpu.inputs.scandata import Scandata
         sd = Scandata(scandata_file)
         skip_pages = sorted(set(skip_pages) | set(sd.skip_pages()))
         dpi_pages = sd.dpi_per_page()
@@ -628,7 +703,8 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     if verbose:
         print('Creating text only PDF')
     t_pass1 = time()
-    create_text_pages(builder, hocr_file, image_files, dpi=dpi,
+    create_text_pages(builder, hocr_file, in_pdf=in_pdf,
+                      image_files=image_files, dpi=dpi,
                       skip_pages=skip_pages, dpi_pages=dpi_pages,
                       reporter=reporter, verbose=verbose, stop_after=stop,
                       jpeg2000_implementation=jpeg2000_implementation,
@@ -649,7 +725,8 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
               % (image_mode, t_pass2 - t_pass1))
     if image_mode == IMAGE_MODE_MRC:
         insert_images_mrc(
-            builder, hocr_file, image_files, dpi=dpi, dpi_pages=dpi_pages,
+            builder, hocr_file, in_pdf=in_pdf, image_files=image_files,
+            dpi=dpi, dpi_pages=dpi_pages,
             bg_compression_flags=bg_compression_flags,
             fg_compression_flags=fg_compression_flags,
             skip_pages=skip_pages, img_dir=out_dir, jbig2=jbig2,
@@ -684,9 +761,21 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
                      ('creatortool', metadata_creatortool)):
         if val:
             extra_metadata[key] = val
+    from_docinfo = None
+    from_xmp = None
+    if in_pdf is not None:
+        # the source's CreationDate and XMP carry over (recode.py:982-996)
+        from_docinfo = {}
+        v = in_pdf.info().get('CreationDate')
+        if v is not None:
+            from_docinfo['creationDate'] = v.decode('latin-1') \
+                if isinstance(v, bytes) else str(v)
+        xmp = in_pdf.xmp_metadata()
+        if xmp:
+            from_xmp = xmp.decode('utf-8', 'replace')
     builder.write_metadata(extra_metadata=extra_metadata,
-                           from_docinfo=None, from_xmp=None)
-    _stamp_producer(builder, 'creatortool' not in extra_metadata)
+                           from_docinfo=from_docinfo, from_xmp=from_xmp)
+    _stamp_producer(builder)
 
     if verbose:
         print('Saving PDF now (pass 2 + finalize took %.2fs)'
@@ -703,15 +792,18 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     print('Processed %d pages at %.2f seconds/page'
           % (len(builder.pages), (end_time - start_time) / n_pages))
 
-    oldsize = 0
-    skipped = 0
-    for idx, fname in enumerate(image_files):
-        if skip_pages and idx in skip_pages:
-            skipped += 1
-            continue
-        if stop_after is not None and (idx - skipped) > stop_after:
-            break
-        oldsize += os.path.getsize(fname)
+    if from_pdf is not None:
+        oldsize = os.path.getsize(from_pdf)
+    else:
+        oldsize = 0
+        skipped = 0
+        for idx, fname in enumerate(image_files):
+            if skip_pages and idx in skip_pages:
+                skipped += 1
+                continue
+            if stop_after is not None and (idx - skipped) > stop_after:
+                break
+            oldsize += os.path.getsize(fname)
 
     newsize = os.path.getsize(out_pdf)
     compression_ratio = oldsize / newsize if newsize else 0.0

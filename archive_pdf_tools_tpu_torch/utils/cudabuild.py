@@ -11,6 +11,11 @@ lock plus an ``fcntl`` file lock, like ``archive_pdf_tools_tpu``'s
 ``-fmad=false`` keeps every float multiply and add separately rounded,
 so the kernels reproduce the plain PyTorch versions bit for bit.
 
+A variant of a source (``load(name, sigs, variant='x', defines=...)``)
+is the same file built with ``-D`` defines into its own
+``build/lib<name>.<variant>.so``; the default build keeps its flags and
+its file name.
+
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -30,8 +35,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xptxas', '-v', '-shared',
               '-Xcompiler', '-fPIC']
 
-# name -> {'seconds': build wall time (0.0 when already built),
-#          'log': nvcc/ptxas output}; read by chip_smoke.py
+# name or name.variant -> {'seconds': build wall time (0.0 when already
+# built), 'log': nvcc/ptxas output}; read by chip_smoke.py
 BUILD_INFO = {}
 
 _libs = {}
@@ -54,7 +59,7 @@ def _stale(so_path, src):
             or os.path.getmtime(so_path) < os.path.getmtime(src))
 
 
-def _build(name, src, so_path):
+def _build(name, src, so_path, flags):
     os.makedirs(BUILD_DIR, exist_ok=True)
     with _guard:
         lock = _path_locks.setdefault(so_path, threading.Lock())
@@ -67,8 +72,7 @@ def _build(name, src, so_path):
             tmp = '%s.tmp.%d' % (so_path, os.getpid())
             t0 = time.time()
             try:
-                res = subprocess.run([_nvcc()] + NVCC_FLAGS
-                                     + ['-o', tmp, src],
+                res = subprocess.run([_nvcc()] + flags + ['-o', tmp, src],
                                      capture_output=True, text=True)
                 if res.returncode != 0:
                     raise RuntimeError('nvcc failed for %s:\n%s%s'
@@ -83,27 +87,41 @@ def _build(name, src, so_path):
             fcntl.flock(lk, fcntl.LOCK_UN)
 
 
-def load(name, signatures):
+def so_path(name, variant=None):
+    """Where ``load`` puts the library of ``csrc/<name>.cu`` (of one
+    variant of it)."""
+    stem = name if variant is None else '%s.%s' % (name, variant)
+    return os.path.join(BUILD_DIR, 'lib%s.so' % stem)
+
+
+def load(name, signatures, variant=None, defines=None):
     """Build (if needed) and load ``csrc/<name>.cu``.
 
     signatures: {c_function: [ctypes argtypes]}; every function returns
-    a C int (the ``cudaError_t`` of its launch).  Returns the CDLL."""
+    a C int (the ``cudaError_t`` of its launch).  variant: a name for a
+    build with ``defines`` ({macro: value}), loaded from its own .so.
+    Returns the CDLL."""
+    if defines and variant is None:
+        raise ValueError('cudabuild.load: defines need a variant name')
+    key = name if variant is None else '%s.%s' % (name, variant)
     with _guard:
-        if name in _libs:
-            return _libs[name]
+        if key in _libs:
+            return _libs[key]
     src = os.path.join(CSRC, name + '.cu')
-    so_path = os.path.join(BUILD_DIR, 'lib%s.so' % name)
-    if _stale(so_path, src):
-        _build(name, src, so_path)
+    path = so_path(name, variant)
+    flags = NVCC_FLAGS + ['-D%s=%s' % kv for kv in sorted(
+        (defines or {}).items())]
+    if _stale(path, src):
+        _build(key, src, path, flags)
     else:
-        BUILD_INFO.setdefault(name, {'seconds': 0.0, 'log': ''})
-    lib = ctypes.CDLL(so_path)
+        BUILD_INFO.setdefault(key, {'seconds': 0.0, 'log': ''})
+    lib = ctypes.CDLL(path)
     for fn, argtypes in signatures.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     with _guard:
-        _libs[name] = lib
+        _libs[key] = lib
     return lib
 
 

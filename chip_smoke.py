@@ -5,8 +5,9 @@ one NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Device and build: the card's name and power limit, and the nvcc
-   builds of the five kernels (``archive_pdf_tools_tpu_torch/csrc``),
-   all started together.
+   builds of the five kernels (``archive_pdf_tools_tpu_torch/csrc``) and
+   of the eight ablation builds of the blur + Sauvola kernel (K6), all
+   started together.
 2. Kernel vs plain version, on the card, at the main path's shapes (a
    batch of 8 gray 400-DPI pages, 3300x2550, and their ~60 hOCR lines a
    page; RGB for the fill): each kernel must equal its plain PyTorch
@@ -15,14 +16,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CUDA-event-timed runs after a warm-up.  Then (2b) the same check at
    small and ragged shapes: one-row, tall (> 512 rows) and narrow lines,
    pages with no lines, no selected line, and the global threshold at
-   windows 183 and 201 (sums of squares past 2^31).
+   windows 183 and 201 (sums of squares past 2^31).  (2c) each ablation
+   build of K3 against its plain version at the same batch, then one
+   run of the ablation tool
+   (``archive_pdf_tools_tpu_torch/tools/threshold_ablate.py``) at batch 2.
 3. End to end, through the recode_pdf_torch CLI: a 16-page 400-DPI book
    with hOCR lines (15 gray pages, 1 RGB), once with default flags and
    once with ``--bg-downsample 3``; then 8 of its pages with hOCR that
    holds no words.  Each output must pass the PDF/A validator and each
    kernel of the path must have launched in that run.  A small worded
    book recoded on the card must also equal, byte for byte, the same
-   book recoded with the plain versions on the CPU (3b).
+   book recoded with the plain versions on the CPU (3b).  (3c)
+   ``--from-pdf`` with ``-T`` on a PDF that Pillow writes from the
+   book's first 8 pages (one JPEG a page); ``--from-pdf`` without ``-T``
+   on the small book's own MRC PDF (two images and a text layer a page);
+   the small book with ``--scandata-file``.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the run exits
@@ -45,6 +53,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, DPI, BATCH, N_PAGES = 3300, 2550, 400, 8, 16
 WINDOW = 101                             # sauvola_window(400)
 DEV = 'cuda:0'
+ABLATE = 'tools/threshold_ablate.py:189'     # the TPU tool's _build
 
 # csrc/<name>.cu: (wrapper module in ops/, wrapper function, TPU kernel
 # it replaces)
@@ -152,6 +161,8 @@ def make_pages():
 
 def phase_build():
     import torch
+    from archive_pdf_tools_tpu_torch.ops.threshold_ablate_cuda import (
+        VARIANTS, build)
     from archive_pdf_tools_tpu_torch.utils import cudabuild
     print('device:', torch.cuda.get_device_name(0))
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -160,11 +171,14 @@ def phase_build():
     print('nvidia-smi:', smi)
     print('torch', torch.__version__, 'cuda', torch.version.cuda)
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:
-        list(ex.map(lambda k: cudabuild.load(
-            k, _wrapper_module(k)._SIGNATURES), KERNELS))
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + len(VARIANTS)) as ex:
+        builds = [ex.submit(cudabuild.load, k, _wrapper_module(k)._SIGNATURES)
+                  for k in KERNELS]
+        builds += [ex.submit(build, v) for v in VARIANTS]
+        for b in builds:
+            b.result()
     print('nvcc builds, all started together: %.2f s' % (time.time() - t0))
-    for name in KERNELS:
+    for name in list(KERNELS) + ['blur_sauvola.' + v for v in VARIANTS]:
         info = cudabuild.BUILD_INFO[name]
         print('nvcc build %s: %.2f s' % (name, info['seconds']))
         for line in info['log'].splitlines():
@@ -386,15 +400,12 @@ def phase_odd_shapes():
     print('phase 2b: %d odd-shape cases, kernel == plain' % n_cases)
 
 
-def _write_book(tmp, name, pages, wds):
-    """Page PNGs plus an hOCR file whose lines are ``wds``' line boxes
-    (one word a line; none when wds holds empty pages)."""
-    from PIL import Image
+def _write_hocr(tmp, name, pages, wds):
+    """An hOCR file whose lines are ``wds``' line boxes (one word a line;
+    none when wds holds empty pages)."""
     fx = _tests_module('fixtures')
     hocr = []
     for i, (page, wd) in enumerate(zip(pages, wds)):
-        Image.fromarray(page).save(os.path.join(tmp, '%s_%04d.png'
-                                                % (name, i)))
         words = [tuple(line['bbox']) + ('synthword',)
                  for para in wd for line in para['lines']]
         hocr.append(fx.words_to_hocr_page(words, page.shape[1],
@@ -403,43 +414,73 @@ def _write_book(tmp, name, pages, wds):
     hocr_path = os.path.join(tmp, name + '.hocr')
     with open(hocr_path, 'w', encoding='utf-8') as fp:
         fp.write(fx.HOCR_TEMPLATE % '\n'.join(hocr))
-    return os.path.join(tmp, name + '_*.png'), hocr_path
+    return hocr_path
 
 
-def run_book(tmp, name, pages, wds, extra, need):
-    """One recode_pdf_torch CLI run; the launch counts of that run must
-    reach ``need``.  Returns the counts."""
+def _write_book(tmp, name, pages, wds):
+    """Page PNGs plus their hOCR file."""
+    from PIL import Image
+    for i, page in enumerate(pages):
+        Image.fromarray(page).save(os.path.join(tmp, '%s_%04d.png'
+                                                % (name, i)))
+    return (os.path.join(tmp, name + '_*.png'),
+            _write_hocr(tmp, name, pages, wds))
+
+
+def _run_cli(args, out, insize, n_pages, need):
+    """One recode_pdf_torch CLI run on the card; its output must pass the
+    PDF/A validator and the launch counts of that run reach ``need``.
+    Returns the counts."""
     from archive_pdf_tools_tpu.validators import validate_pdfa  # jax-free
     from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
-    glob_pat, hocr_path = _write_book(tmp, name, pages, wds)
-    out = os.path.join(tmp, name + '.pdf')
     counters = {name: getattr(_wrapper_module(name), KERNELS[name][1])
                 for name in KERNELS}
-    n_lines = sum(len(para['lines']) for wd in wds for para in wd)
-    print('phase 3: recode_pdf_torch %s, %d pages of %dx%d at %d DPI, '
-          '%d hOCR lines' % (' '.join(extra) or '(default flags)',
-                             len(pages), H, W, DPI, n_lines))
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
-    rc = main(['--from-imagestack', glob_pat, '--hocr-file', hocr_path,
-               '--dpi', str(DPI), '-o', out, '-v', '--device', DEV]
-              + list(extra))
+    rc = main(list(args) + ['-o', out, '-v', '--device', DEV])
     wall = time.time() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     if rc != 0:
         raise SystemExit('FAIL: recode_pdf_torch exited %d' % rc)
     validate_pdfa(out)
-    insize = sum(os.path.getsize(p) for p in glob.glob(glob_pat))
     print('  wall %.3f s = %.4f pages/s; compression ratio %.3f; '
           'PDF/A valid; launches %s'
-          % (wall, len(pages) / wall, insize / os.path.getsize(out),
-             launches))
+          % (wall, n_pages / wall, insize / os.path.getsize(out), launches))
     for k, n in need.items():
         if launches[k] < n:
             raise SystemExit('FAIL: %s launched %d times on the path, '
                              'expected >= %d' % (k, launches[k], n))
     return launches
+
+
+def run_book(tmp, name, pages, wds, extra, need):
+    """One recode_pdf_torch CLI run on an image stack."""
+    glob_pat, hocr_path = _write_book(tmp, name, pages, wds)
+    n_lines = sum(len(para['lines']) for wd in wds for para in wd)
+    print('phase 3: recode_pdf_torch %s, %d pages of %dx%d at %d DPI, '
+          '%d hOCR lines' % (' '.join(extra) or '(default flags)',
+                             len(pages), H, W, DPI, n_lines))
+    insize = sum(os.path.getsize(p) for p in glob.glob(glob_pat))
+    return _run_cli(['--from-imagestack', glob_pat, '--hocr-file', hocr_path,
+                     '--dpi', str(DPI)] + list(extra),
+                    os.path.join(tmp, name + '.pdf'), insize, len(pages),
+                    need)
+
+
+def phase_from_pdf(tmp, pages, wds, need):
+    """--from-pdf with -T on a PDF that Pillow writes, one JPEG a page."""
+    from PIL import Image
+    hocr_path = _write_hocr(tmp, 'pdfbook', pages, wds)
+    src = os.path.join(tmp, 'pillow.pdf')
+    ims = [Image.fromarray(p) for p in pages]
+    ims[0].save(src, save_all=True, append_images=ims[1:], resolution=DPI)
+    print('phase 3c: recode_pdf_torch --from-pdf -T, %d pages of %dx%d at '
+          '%d DPI, one JPEG a page, written by Pillow (%.1f MB)'
+          % (len(pages), H, W, DPI, os.path.getsize(src) / 1e6))
+    _run_cli(['--from-pdf', src, '--hocr-file', hocr_path],
+             os.path.join(tmp, 'pdfbook.pdf'), os.path.getsize(src),
+             len(pages), need)
 
 
 def phase_small_book(tmp):
@@ -476,6 +517,73 @@ def phase_small_book(tmp):
         raise SystemExit('FAIL: card and CPU recode differ')
 
 
+def phase_small_from_pdf(tmp, need):
+    """--from-pdf without -T on the small book's own MRC PDF (two images
+    and a text layer a page): hOCR from its text layer, each page
+    rendered whole."""
+    from archive_pdf_tools_tpu.pdf.reader import PdfReader
+    src = os.path.join(tmp, 'small_card.pdf')
+    out = os.path.join(tmp, 'small_frompdf.pdf')
+    print('phase 3c: recode_pdf_torch --from-pdf without -T, the 3-page '
+          'small book\'s MRC PDF')
+    _run_cli(['--from-pdf', src], out, os.path.getsize(src), 3, need)
+    rd = PdfReader(out)
+    if rd.page_count() != 3 or b'TJ' not in rd.page_contents(0):
+        raise SystemExit('FAIL: --from-pdf without -T lost pages or text')
+
+
+def phase_scandata(tmp, need):
+    """The small book with --scandata-file: a skipped page, page labels."""
+    import pathlib
+    from archive_pdf_tools_tpu.pdf.reader import PdfReader
+    sd = _tests_module('fixtures').make_scandata(
+        pathlib.Path(tmp), 3, dpi=100, skip=(1,), numbers=['1', None, '3'])
+    glob_pat = os.path.join(tmp, 'small_*.png')
+    out = os.path.join(tmp, 'small_scandata.pdf')
+    print('phase 3c: recode_pdf_torch --scandata-file, the 3-page small '
+          'book, one page skipped')
+    kept = [p for i, p in enumerate(sorted(glob.glob(glob_pat))) if i != 1]
+    _run_cli(['--from-imagestack', glob_pat, '--hocr-file',
+              os.path.join(tmp, 'small.hocr'), '--scandata-file', sd],
+             out, sum(os.path.getsize(p) for p in kept), 2, need)
+    rd = PdfReader(out)
+    if rd.page_count() != 2 or 'PageLabels' not in rd.catalog:
+        raise SystemExit('FAIL: --scandata-file: pages or labels wrong')
+
+
+def phase_ablate(pages):
+    """K6: each ablation build of K3 against its plain version at the
+    main path's batch (book pages, real taps r=4); then the ablation
+    tool's main at batch 2, whose launches are the ones counted."""
+    import torch
+    from archive_pdf_tools_tpu_torch.mrc import decompose as D
+    from archive_pdf_tools_tpu_torch.ops import threshold_ablate_cuda as A
+    from archive_pdf_tools_tpu_torch.ops.sigma import estimate_noise
+    from archive_pdf_tools_tpu_torch.tools import threshold_ablate
+    gray = torch.from_numpy(np.stack(pages)).to(DEV)
+    taps = D.blur_weights_from_sigma(estimate_noise(gray), 4).contiguous()
+    print('phase 2c: K3 ablation builds vs plain, batch %d x %dx%d'
+          % (len(pages), H, W))
+    results = {}
+    for v in A.VARIANTS:
+        results[v] = _compare(
+            'blur_sauvola_ablate %s' % v,
+            lambda: A.blur_sauvola_ablate(gray, taps, WINDOW, v),
+            lambda: A.blur_sauvola_ablate_plain(gray, taps, WINDOW, v))
+    del gray
+    print('phase 2c: python -m archive_pdf_tools_tpu_torch.tools.'
+          'threshold_ablate 2 1')
+    A.blur_sauvola_ablate.launches.clear()
+    rc = threshold_ablate.main(['2', '1'])
+    launches = dict(A.blur_sauvola_ablate.launches)
+    if rc != 0:
+        raise SystemExit('FAIL: threshold_ablate exited %d' % rc)
+    for v in A.VARIANTS:
+        if launches.get(v, 0) < 1:
+            raise SystemExit('FAIL: ablation build %s never launched' % v)
+    return results, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -491,6 +599,7 @@ def main():
     print('made %d pages in %.1f s' % (N_PAGES, time.time() - t0))
     kernels = phase_kernels(pages[:BATCH], wds[:BATCH])
     phase_odd_shapes()
+    ablate, ablate_launches = phase_ablate(pages[:BATCH])
     every = {'blur_sauvola': 2, 'despeckle': 2, 'optimise': 4}
     lined = dict(every, line_sauvola=2, paste=2)
     with tempfile.TemporaryDirectory(prefix='chip_smoke') as tmp:
@@ -498,7 +607,13 @@ def main():
         run_book(tmp, 'bgds', pages, wds, ['--bg-downsample', '3'], lined)
         run_book(tmp, 'noword', pages[:BATCH], [[]] * BATCH, [],
                  dict(every, blur_sauvola=1, despeckle=1, optimise=2))
+        # one batch with lines: each kernel at least once, K1 twice
+        one_batch = dict(blur_sauvola=1, despeckle=1, optimise=2,
+                         line_sauvola=1, paste=1)
+        phase_from_pdf(tmp, pages[:BATCH], wds[:BATCH], one_batch)
         phase_small_book(tmp)
+        phase_small_from_pdf(tmp, one_batch)
+        phase_scandata(tmp, one_batch)
     if 'jax' in sys.modules:
         raise SystemExit('FAIL: jax was imported')
 
@@ -510,6 +625,13 @@ def main():
             'replaces': KERNELS[name][2], 'launches': launches[name],
             'max_abs_err': max(c['max_abs_err'] for c in cases),
             'ms': head['ms'], 'plain_ms': head['plain_ms']})
+    for v, r in ablate.items():
+        summary.append({
+            'name': 'blur_sauvola_ablate.' + v, 'route': 'cuda',
+            'source': 'archive_pdf_tools_tpu_torch/csrc/blur_sauvola.cu',
+            'replaces': ABLATE, 'launches': ablate_launches[v],
+            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+            'plain_ms': r['plain_ms']})
     print(smi)
     print(json.dumps({'kernels': summary}))
     print(json.dumps({'ok': True, 'device': {

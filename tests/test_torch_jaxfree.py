@@ -1,6 +1,6 @@
-"""The PyTorch port never imports jax, and its main path (hOCR lines
-and layer downsampling included) needs no lxml (GPU machines may not
-ship it)."""
+"""The PyTorch port never imports jax, and its main path (hOCR lines,
+layer downsampling, scandata and --from-pdf included) needs no lxml (GPU
+machines may not ship it)."""
 
 import os
 import subprocess
@@ -15,7 +15,9 @@ import archive_pdf_tools_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
-for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize'):
+for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize',
+             'ops.threshold_ablate_cuda', 'tools.threshold_ablate',
+             'inputs.scandata', 'pdf.raster'):
     assert pkg.__name__ + '.' + name in names, name
 print(len(names), 'jax' in sys.modules)
 '''
@@ -46,6 +48,49 @@ print('rc', rc)
 '''
 
 
+_FROM_PDF_WITHOUT_LXML = r'''
+import pathlib, sys
+sys.modules['jax'] = None       # any import of jax or lxml now fails
+sys.modules['lxml'] = None
+sys.path.insert(0, %(root)r)
+sys.path.insert(0, %(tests)r)
+import torch
+torch.set_num_threads(2)
+from PIL import Image
+from fixtures import (render_book_page, words_to_hocr_page, HOCR_TEMPLATE,
+                      make_scandata)
+from archive_pdf_tools_tpu.pdf.reader import PdfReader
+from archive_pdf_tools_tpu.validators import validate_pdfa
+from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
+tmp = pathlib.Path(%(tmp)r)
+hocr = []
+for i in range(3):
+    img, words = render_book_page(200, 260, seed=i, noise=0)
+    Image.fromarray(img).save(str(tmp / ('page_%%04d.png' %% i)))
+    hocr.append(words_to_hocr_page(words, 200, 260, page_no=i))
+(tmp / 'book.hocr').write_text(HOCR_TEMPLATE %% '\n'.join(hocr))
+sd = make_scandata(tmp, 3, dpi=100, skip=(2,), numbers=['1', '2', None])
+common = ['--device', 'cpu', '--threads', '2']
+rc = main(['--from-imagestack', str(tmp / 'page_*.png'), '--hocr-file',
+           str(tmp / 'book.hocr'), '--scandata-file', sd,
+           '-o', str(tmp / 'src.pdf')] + common)
+assert rc == 0
+validate_pdfa(str(tmp / 'src.pdf'))
+src = PdfReader(str(tmp / 'src.pdf'))
+assert src.page_count() == 2 and 'PageLabels' in src.catalog
+assert all(len(src.page_images(i)) == 2 for i in range(2))
+# the MRC output (two images and a text layer a page) as a source,
+# without -T: hOCR from its text layer, each page rendered whole
+rc = main(['--from-pdf', str(tmp / 'src.pdf'), '-o', str(tmp / 'out.pdf')]
+          + common)
+validate_pdfa(str(tmp / 'out.pdf'))
+out = PdfReader(str(tmp / 'out.pdf'))
+assert out.page_count() == 2
+assert b'TJ' in out.page_contents(0)
+print('rc', rc)
+'''
+
+
 def _env():
     env = dict(os.environ, OMP_NUM_THREADS='2')
     env.pop('APT_PLATFORM', None)
@@ -65,6 +110,15 @@ def test_port_imports_no_jax():
 def test_main_path_runs_without_jax_and_lxml(tmp_path):
     code = _RECODE_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
                                    'tests': os.path.join(ROOT, 'tests')}
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, env=_env(), timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith('rc 0')
+
+
+def test_scandata_and_from_pdf_run_without_jax_and_lxml(tmp_path):
+    code = _FROM_PDF_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
+                                     'tests': os.path.join(ROOT, 'tests')}
     r = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, env=_env(), timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]

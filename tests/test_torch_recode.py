@@ -201,17 +201,18 @@ def test_cli_recodes_on_cpu_and_refuses_without_gpu(tmp_path):
     {'jbig2_bands': 2},
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, kw):
-    """The downsampling options are ported now: each runs on a worded
-    book and gives the JAX package's PDF (the bytes with ``downsample``,
-    where the page shrinks on the host; the image sizes where a layer
-    shrinks on the device, whose float sums may differ by 1 LSB).  The
-    other options still raise."""
+    """The downsampling options and ``from_pdf`` are ported now: each runs
+    on a worded book (``from_pdf``: the JAX package's PDF of it) and gives
+    the JAX package's PDF (the bytes with ``downsample`` and
+    ``from_pdf``, where no float sum on the device enters; the image
+    sizes where a layer shrinks on the device, whose float sums may
+    differ by 1 LSB).  The other options still raise."""
     from archive_pdf_tools_tpu_torch import recode
     args = dict(from_imagestack=str(tmp_path / '*.png'),
                 hocr_file=str(tmp_path / 'x.hocr'),
                 out_pdf=str(tmp_path / 'o.pdf'), device='cpu')
     args.update(kw)
-    if not any(k.endswith('downsample') for k in kw):
+    if not any(k.endswith('downsample') or k == 'from_pdf' for k in kw):
         with pytest.raises(NotImplementedError):
             recode(**args)
         return
@@ -221,13 +222,19 @@ def test_unported_options_raise(tmp_path, monkeypatch, kw):
     glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=2, words=True)
     args.update(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
                 jbig2=True)
+    if 'from_pdf' in kw:
+        src = str(tmp_path / 'in.pdf')
+        jax_recode(out_pdf=src, **{k: v for k, v in args.items()
+                                   if k not in ('out_pdf', 'device',
+                                                'from_pdf')})
+        args.update(from_pdf=src, from_imagestack=None, dpi=None)
     recode(**args)
     validate_pdfa(args['out_pdf'])
     ref = str(tmp_path / 'jax.pdf')
     del args['device']
     jax_recode(**dict(args, out_pdf=ref))
     assert _image_sizes(args['out_pdf']) == _image_sizes(ref)
-    if 'downsample' in kw:
+    if 'downsample' in kw or 'from_pdf' in kw:
         with open(args['out_pdf'], 'rb') as a, open(ref, 'rb') as b:
             assert a.read() == b.read()
 
