@@ -104,9 +104,11 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
 
 
 def decompose_layers(mask, dev_imgs, bg_downsample=None, fg_downsample=None,
-                     timing_data=None, errors=None):
+                     timing_data=None, errors=None, device=False):
     """fg/bg phase: the radiate fills and the optional layer downsampling,
-    as uint8 numpy arrays (downsampled sizes if requested).
+    as uint8 numpy arrays (downsampled sizes if requested), or with
+    ``device=True`` as tensors left on the device, for a device consumer
+    (the ``-J tpu`` batch transform).
 
     mask: bool (B, H, W) tensor; dev_imgs: uint8 (B, H, W[, 3]) tensor on
     the same device.  ``errors`` (a set) collects the reference's
@@ -131,6 +133,8 @@ def decompose_layers(mask, dev_imgs, bg_downsample=None, fg_downsample=None,
         bg = _downsample(bg, bg_downsample, errors)
         synchronize(bg.device)
         td.add('bg_downsample', t0)
+    if device:
+        return fg, bg
     return fg.cpu().numpy(), bg.cpu().numpy()
 
 

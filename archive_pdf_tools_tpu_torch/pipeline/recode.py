@@ -2,14 +2,16 @@
 
 Counterpart of the JAX package's ``pipeline/recode.py`` for its main
 path: an image stack or an existing PDF (``from_pdf``) plus hOCR, MRC
-mode, with optional page and layer downsampling.  Pass 1 writes one
-invisible-text page per hOCR page;
-pass 2 groups the pages into batches of equal shape/mode/dpi on a loader
-thread, runs the MRC decomposition of each batch on the device
-(``mrc/api.py``), encodes mask/fg/bg on a host thread pool while the
-next batch computes, and inserts the encoded streams in page order, so
-xref numbering (and the output bytes) never depend on thread completion
-order.  The PDF names this engine (``PRODUCER``) in Info and XMP.
+mode, with optional page and layer downsampling, and the JPEG2000
+layers through Pillow or the in-tree encoder (``-J tpu``, whose
+transform runs on the device).  Pass 1 writes one invisible-text page
+per hOCR page; pass 2 groups the pages into batches of equal
+shape/mode/dpi on a loader thread, runs the MRC decomposition of each
+batch on the device (``mrc/api.py``), encodes mask/fg/bg on a host
+thread pool while the next batch computes, and inserts the encoded
+streams in page order, so xref numbering (and the output bytes) never
+depend on thread completion order.  The PDF names this engine
+(``PRODUCER``) in Info and XMP.
 
 Options the port does not cover yet raise ``NotImplementedError`` naming
 the flag; nothing silently runs something else.
@@ -39,11 +41,10 @@ from archive_pdf_tools_tpu.const import (
     IMAGE_MODE_MRC, IMAGE_MODE_SKIP, COMPRESSOR_JPEG2000, COMPRESSOR_JBIG2,
     COMPRESSOR_CCITT, JPEG2000_IMPL_PILLOW, JPEG2000_IMPL_TPU, DENOISE_FAST,
     RECODE_RUNTIME_WARNING_INVALID_PAGE_SIZE)
-from archive_pdf_tools_tpu.codecs.jpeg2000 import (decode_jpeg2000,
-                                                   get_jpeg2000_info)
+from archive_pdf_tools_tpu.codecs.jpeg2000 import (
+    decode_jpeg2000, get_jpeg2000_info, _pillow_kwargs)
 from archive_pdf_tools_tpu.codecs.mrc_encode import (
-    encode_mrc_mask, encode_mrc_images, EncodedLayer, EncodedMask,
-    PackedMask)
+    encode_mrc_mask, EncodedLayer, EncodedMask, PackedMask)
 from archive_pdf_tools_tpu.const import PRODUCER as JAX_PRODUCER
 from archive_pdf_tools_tpu.pdf.builder import DocumentBuilder
 from archive_pdf_tools_tpu.pdf.reader import PdfReader
@@ -51,6 +52,8 @@ from archive_pdf_tools_tpu.pdf.writer import Name
 from archive_pdf_tools_tpu.pipeline.timing import get_timing_summary, Reporter
 
 from .. import PRODUCER
+from ..codecs.jp2tpu import transform_jp2_batch_async
+from ..codecs.mrc_encode import encode_mrc_images
 from ..inputs.scandata import Scandata
 from ..mrc.api import decompose_masks, decompose_layers
 from ..utils.backend import (pack_mask_bits, resolve_device,
@@ -62,6 +65,30 @@ PDFA_MAX_UNITS = 14400
 Image.MAX_IMAGE_PIXELS = 625000000
 
 DEFAULT_BATCH_PAGES = 8
+
+# -J tpu transforms a batch's fg layers in groups of this many pages, so
+# that one group's host Tier-1 can start while the next group is still
+# being copied back (the JAX package's APT_JP2_XFORM_GROUP default)
+JP2_FG_GROUP = 4
+
+
+def _jpeg2000_decoder(impl):
+    """The implementation that decodes a JPEG2000 input page.  -J tpu
+    writes standard Part-1 streams, which the shared ``decode_jpeg2000``
+    decodes through Pillow, but its check of the name 'tpu' imports the
+    JAX package's encoder, so the port asks for Pillow by name."""
+    return JPEG2000_IMPL_PILLOW if impl == JPEG2000_IMPL_TPU else impl
+
+
+def _jp2_transform_args(flags):
+    """transform_jp2_batch_async arguments from a -J tpu flag string
+    (``ratio:500;levels:5;delta:0.5``): pack8 at ratio >= 200, as the JAX
+    pipeline asks (pack4 from 400 is the transform's own choice)."""
+    kw = _pillow_kwargs(flags[0]) if flags and flags[0] else {}
+    ratio = kw.get('ratio')
+    return dict(base_delta=kw.get('delta', 1.0 / 64),
+                levels=int(kw.get('levels', 5)),
+                pack8=bool(ratio) and float(ratio) >= 200, ratio=ratio)
 
 
 def guess_dpi(w, h, expected_format=(8.27, 11.69),
@@ -125,8 +152,9 @@ def create_text_pages(builder, hocr_file, in_pdf=None, image_files=None,
         elif image_files is not None:
             imgfile = image_files[idx]   # do not subtract skipped pages
             if imgfile.endswith('.jp2'):
-                size, _ = get_jpeg2000_info(imgfile,
-                                            jpeg2000_implementation, errors)
+                size, _ = get_jpeg2000_info(
+                    imgfile, _jpeg2000_decoder(jpeg2000_implementation),
+                    errors)
                 imwidth, imheight = size
             else:
                 with Image.open(imgfile) as img:
@@ -251,7 +279,8 @@ def _load_page_image(in_pdf, image_files, src_idx, downsample,
         imgfile = image_files[src_idx]
         if imgfile.endswith(('.jp2', '.jpx')):
             image = decode_jpeg2000(imgfile, reduce_=downsample,
-                                    impl=jpeg2000_implementation,
+                                    impl=_jpeg2000_decoder(
+                                        jpeg2000_implementation),
                                     threads=threads, debug=debug)
             downsampled = bool(downsample)
         else:
@@ -418,7 +447,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
     pending = []   # encode futures; drained IN PAGE ORDER (main thread)
     max_pending = 4 * n_workers   # bounds fg/bg buffers held by the queue
 
-    def encode_page(job, mask_np, fg_np, bg_np, image_mode):
+    def encode_page(job, mask_np, fg_np, bg_np, image_mode, fg_qbands=None,
+                    bg_qbands=None):
         """Encode one page's components on the pool.  The builder
         insertion happens in the page-ordered drain, not here."""
         bgf = hq_bg_compression_flags if job.hq else bg_compression_flags
@@ -429,7 +459,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             mask_fmt=mask_fmt, embedded_jbig2=True,
             jpeg2000_implementation=jpeg2000_implementation,
             mrc_image_format=mrc_image_format, tmp_dir=tmp_dir,
-            threads=threads, timing_data=timing_data, debug=debug)
+            threads=threads, timing_data=timing_data, debug=debug,
+            fg_qbands=fg_qbands, bg_qbands=bg_qbands, device=device)
         if img_dir is not None:
             _write_artifacts(img_dir, job, image_mode, em, eb, ef)
         return job, image_mode == 'L', em, eb, ef
@@ -441,6 +472,33 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
         builder.insert_image(job.page_idx, eb, gray=gray)
         builder.insert_image(job.page_idx, ef, gray=gray, mask_enc=em)
         timing_data.append(('page_image_insertion', time() - t))
+
+    def jp2_transforms(plain, fg_dev, bg_dev):
+        """-J tpu: the batch transforms of the pages ``plain`` (the
+        batch's non-HQ pages) of the device layers, the bg in one call
+        and the fg in groups of JP2_FG_GROUP.  Returns, for fg and bg,
+        {page: (fetch of its qbands, meta, its index in the transform)}
+        (``recode.py:583-651``)."""
+        if not plain:
+            return {}, {}
+        t = time()
+        if len(plain) < fg_dev.shape[0]:
+            idx = torch.tensor(plain, device=fg_dev.device)
+            fg_dev = fg_dev.index_select(0, idx)
+            bg_dev = bg_dev.index_select(0, idx)
+        fargs = _jp2_transform_args(fg_compression_flags)
+        fg_qb = {}
+        for a in range(0, len(plain), JP2_FG_GROUP):
+            sub = fg_dev[a:a + JP2_FG_GROUP]
+            fetch, meta = transform_jp2_batch_async(sub, **fargs)
+            for k in range(int(sub.shape[0])):
+                fg_qb[plain[a + k]] = ((lambda k=k, f=fetch: f(k)), meta, k)
+        fetch, meta = transform_jp2_batch_async(
+            bg_dev, **_jp2_transform_args(bg_compression_flags))
+        bg_qb = {i: ((lambda k=k, f=fetch: f(k)), meta, k)
+                 for k, i in enumerate(plain)}
+        timing_data.append(('jp2_batch_transform', time() - t))
+        return fg_qb, bg_qb
 
     def process_batch(batch_jobs, batch_images):
         mode = batch_images[0].mode
@@ -465,11 +523,16 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
         # HQ pages keep full-resolution layers
         any_hq = any(j.hq for j in batch_jobs)
         all_hq = all(j.hq for j in batch_jobs)
-        fg_np, bg_np = decompose_layers(
+        # -J tpu transforms the layers on the device: their pixels never
+        # come back to the host
+        dev_layers = (jpeg2000_implementation == JPEG2000_IMPL_TPU
+                      and mrc_image_format == COMPRESSOR_JPEG2000
+                      and not all_hq)
+        fg_layers, bg_layers = decompose_layers(
             mask_dev, dev_imgs,
             bg_downsample=None if all_hq else bg_downsample,
             fg_downsample=None if all_hq else fg_downsample,
-            timing_data=timing_data, errors=errors)
+            timing_data=timing_data, errors=errors, device=dev_layers)
         t = time()
         packed_np = pack_mask_bits(mask_dev).cpu().numpy()
         h_m, w_m = int(mask_dev.shape[1]), int(mask_dev.shape[2])
@@ -491,12 +554,30 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
                                     timing_data=timing_data, errors=errors)
             hq_layers = {i: (f[k], b[k]) for k, i in enumerate(hq_idx)}
 
+        fg_qb, bg_qb = {}, {}
+        if dev_layers:
+            fg_qb, bg_qb = jp2_transforms(
+                [i for i, job in enumerate(batch_jobs)
+                 if not job.hq and i not in hq_layers], fg_layers, bg_layers)
+
         for i, job in enumerate(batch_jobs):
-            f_np, b_np = hq_layers.get(i, (fg_np[i], bg_np[i]))
-            pending.append(pool.submit(encode_page, job, masks[i],
-                                       f_np, b_np, mode))
+            if i in fg_qb:
+                # the qbands carry all the encoder needs
+                fg = bg = None
+            else:
+                # numpy, or with dev_layers an HQ page's device tensor
+                fg, bg = hq_layers.get(i, (fg_layers[i], bg_layers[i]))
+            pending.append(pool.submit(encode_page, job, masks[i], fg, bg,
+                                       mode, fg_qb.get(i), bg_qb.get(i)))
         while len(pending) > max_pending:
             drain_one(pending.pop(0))
+
+    # a document of one batch goes in two halves, so the second half's
+    # load and device work overlap the first half's host encode
+    # (``recode.py:686-688``).  With -J tpu this also decides the bytes:
+    # the pack shifts are shared by the pages of one transform.
+    if 4 <= len(jobs) <= batch_pages:
+        batch_pages = (len(jobs) + 1) // 2
 
     # a loader thread decodes and batches images (by shape/mode/dpi)
     # while the main thread drives the device; queue depth 2 = double
@@ -593,14 +674,12 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
 
 
 def _reject_unported(image_mode, grayscale_pdf, force_1bit_output,
-                     jpeg2000_implementation, jbig2_symbol_mode, jbig2_bands,
-                     profile_dir):
+                     jbig2_symbol_mode, jbig2_bands, profile_dir):
     """Options off the ported slice raise; none silently runs another
     path."""
     unported = [
         (image_mode not in (IMAGE_MODE_MRC, IMAGE_MODE_SKIP),
          '--image-mode %s' % (image_mode,)),
-        (jpeg2000_implementation == JPEG2000_IMPL_TPU, '-J tpu'),
         (grayscale_pdf, '--grayscale-pdf'),
         (force_1bit_output, '--bw-pdf'),
         (bool(jbig2_symbol_mode), '--jbig2-symbol-coding other than off'),
@@ -651,8 +730,7 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     JAX package's ``recode`` plus ``device`` (default the first GPU;
     ``'cpu'`` runs the plain PyTorch versions of the kernels)."""
     _reject_unported(image_mode, grayscale_pdf, force_1bit_output,
-                     jpeg2000_implementation, jbig2_symbol_mode, jbig2_bands,
-                     profile_dir)
+                     jbig2_symbol_mode, jbig2_bands, profile_dir)
     if from_pdf is None and from_imagestack is None:
         raise ValueError('recode: from_pdf or from_imagestack is required')
     device = resolve_device(device)

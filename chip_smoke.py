@@ -5,34 +5,44 @@ one NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Device and build: the card's name and power limit, and the nvcc
-   builds of the five kernels (``archive_pdf_tools_tpu_torch/csrc``) and
+   builds of the six kernels (``archive_pdf_tools_tpu_torch/csrc``) and
    of the eight ablation builds of the blur + Sauvola kernel (K6), all
-   started together.
+   started together with the g++ build of the host JPEG2000 Tier-1 coder
+   (``native/jp2t1.cpp``).
 2. Kernel vs plain version, on the card, at the main path's shapes (a
    batch of 8 gray 400-DPI pages, 3300x2550, and their ~60 hOCR lines a
-   page; RGB for the fill): each kernel must equal its plain PyTorch
-   version bit for bit.  The line paste runs with the real selection and
-   with an adversarial one over overlapping boxes.  Times are medians of
-   CUDA-event-timed runs after a warm-up.  Then (2b) the same check at
-   small and ragged shapes: one-row, tall (> 512 rows) and narrow lines,
-   pages with no lines, no selected line, and the global threshold at
-   windows 183 and 201 (sums of squares past 2^31).  (2c) each ablation
+   page; RGB for the fill; the fills' gray and RGB layers for the
+   JPEG2000 transform, 5 levels): each kernel must equal its plain
+   PyTorch version bit for bit.  The line paste runs with the real
+   selection and with an adversarial one over overlapping boxes.  Times
+   are medians of CUDA-event-timed runs after a warm-up.  Then (2b) the
+   same check at small and ragged shapes: one-row, tall (> 512 rows) and
+   narrow lines, pages with no lines, no selected line, the global
+   threshold at windows 183 and 201 (sums of squares past 2^31), and the
+   transform at odd sizes, one-page batches and levels capped by the
+   page size.  (2c) each ablation
    build of K3 against its plain version at the same batch, then one
    run of the ablation tool
    (``archive_pdf_tools_tpu_torch/tools/threshold_ablate.py``) at batch 2.
 3. End to end, through the recode_pdf_torch CLI: a 16-page 400-DPI book
-   with hOCR lines (15 gray pages, 1 RGB), once with default flags and
-   once with ``--bg-downsample 3``; then 8 of its pages with hOCR that
-   holds no words.  Each output must pass the PDF/A validator and each
-   kernel of the path must have launched in that run.  A small worded
-   book recoded on the card must also equal, byte for byte, the same
-   book recoded with the plain versions on the CPU (3b).  (3c)
+   with hOCR lines (15 gray pages, 1 RGB), once with default flags, once
+   with ``--bg-downsample 3`` and once with the in-tree JPEG2000 encoder
+   (``-J tpu``, one HQ page); then 8 of its pages with hOCR that holds
+   no words.  Each output must pass the PDF/A validator and each kernel
+   of the path must have launched in that run; with ``-J tpu`` every JPX
+   stream must also pass the strict JPEG2000 validator, decode with
+   Pillow, and a sampled code block must decode with the from-spec
+   Tier-1 decoder and re-encode to the same bytes.  A small worded book
+   recoded on the card must also equal, byte for byte, the same book
+   recoded with the plain versions on the CPU, with Pillow's JPEG2000
+   and with ``-J tpu`` (3b).  (3c)
    ``--from-pdf`` with ``-T`` on a PDF that Pillow writes from the
    book's first 8 pages (one JPEG a page); ``--from-pdf`` without ``-T``
    on the small book's own MRC PDF (two images and a text layer a page);
    the small book with ``--scandata-file``.
 
-The line before the last is the kernels' JSON summary; the last line is
+The script's wall time, the card's name and power limit and the
+kernels' JSON summary come before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the run exits
 1 and prints no result.
 """
@@ -68,7 +78,11 @@ KERNELS = {
                      'archive_pdf_tools_tpu/ops/lines_pallas.py:256'),
     'paste': ('paste_cuda', 'paste_lines',
               'archive_pdf_tools_tpu/ops/paste_pallas.py:203'),
+    # XLA ops in the JAX package, not a Pallas kernel
+    'dwt97': ('dwt97_cuda', 'dwt97',
+              'archive_pdf_tools_tpu/codecs/jp2tpu.py:260'),
 }
+JP2_LEVELS, JP2_DELTA = 5, 1.0 / 64          # the -J tpu defaults
 
 
 def _wrapper_module(name):
@@ -170,13 +184,24 @@ def phase_build():
                          text=True, check=True).stdout.strip().splitlines()[0]
     print('nvidia-smi:', smi)
     print('torch', torch.__version__, 'cuda', torch.version.cuda)
+    from archive_pdf_tools_tpu_torch.codecs import jp2host
+
+    def host_coder():
+        t = time.time()
+        jp2host._get_lib()
+        return time.time() - t
+
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=len(KERNELS) + len(VARIANTS)) as ex:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + len(VARIANTS)
+                            + 1) as ex:
+        t1 = ex.submit(host_coder)
         builds = [ex.submit(cudabuild.load, k, _wrapper_module(k)._SIGNATURES)
                   for k in KERNELS]
         builds += [ex.submit(build, v) for v in VARIANTS]
         for b in builds:
             b.result()
+        print('g++ build of native/jp2t1.cpp (host Tier-1 coder): %.2f s'
+              % t1.result())
     print('nvcc builds, all started together: %.2f s' % (time.time() - t0))
     for name in list(KERNELS) + ['blur_sauvola.' + v for v in VARIANTS]:
         info = cudabuild.BUILD_INFO[name]
@@ -280,7 +305,25 @@ def phase_kernels(pages, wds):
                            lambda: optimise_cuda.optimise(m, img, n),
                            lambda: opt_plain(m, img, n)))
     results['optimise'] = (k1[1], k1)
+
+    # the JPEG2000 transform of what -J tpu gives it: the fills' layers
+    layers = (('dwt97 gray fg layer', optimise_cuda.optimise(mask, gray, 3)),
+              ('dwt97 rgb bg layer', optimise_cuda.optimise(inv, rgb, 10)))
+    dwt = [_compare_dwt97(n, x) for n, x in layers]
+    results['dwt97'] = (dwt[0], dwt)
     return results
+
+
+def _flat_bands(comps):
+    return tuple(b for comp in comps for b in comp)
+
+
+def _compare_dwt97(name, x, levels=JP2_LEVELS, delta=JP2_DELTA):
+    from archive_pdf_tools_tpu_torch.ops import dwt97_cuda
+    from archive_pdf_tools_tpu_torch.ops.dwt97 import dwt97 as dwt_plain
+    return _compare('%s L=%d' % (name, levels),
+                    lambda: _flat_bands(dwt97_cuda.dwt97(x, levels, delta)),
+                    lambda: _flat_bands(dwt_plain(x, levels, delta)))
 
 
 def _stroke_page(rng, h, w):
@@ -396,6 +439,27 @@ def phase_odd_shapes():
     _check_equal('paste with no lines',
                  paste_cuda.paste_lines(ect, eci, empty, [], gmask), gmask)
     n_cases += 1
+
+    # the JPEG2000 transform: odd sizes, one-page batches, levels capped
+    # by the page (as the encoder caps them) and not
+    from archive_pdf_tools_tpu_torch.codecs.jp2tpu import capped_levels
+    from archive_pdf_tools_tpu_torch.ops import dwt97_cuda
+    from archive_pdf_tools_tpu_torch.ops.dwt97 import dwt97 as dwt_plain
+    for b, h, w, levels in ((1, 1, 1, 5), (2, 5, 7, 5), (1, 40, 33, 5),
+                            (3, 97, 301, 5), (2, 300, 1031, 5),
+                            (1, 3301, 2549, 5), (2, 64, 48, 5),
+                            (2, 33, 1030, 4), (1, 257, 193, 1)):
+        lv = capped_levels(h, w, levels) if levels == 5 else levels
+        for rgb in (False, True):
+            img = torch.from_numpy(rng.integers(
+                0, 256, (b, h, w) + ((3,) if rgb else ()),
+                dtype=np.uint8)).to(dev)
+            for delta in (JP2_DELTA, 0.5):
+                _check_equal('dwt97 at %s L=%d delta %g'
+                             % (tuple(img.shape), lv, delta),
+                             _flat_bands(dwt97_cuda.dwt97(img, lv, delta)),
+                             _flat_bands(dwt_plain(img, lv, delta)))
+                n_cases += 1
     torch.cuda.synchronize()
     print('phase 2b: %d odd-shape cases, kernel == plain' % n_cases)
 
@@ -468,6 +532,58 @@ def run_book(tmp, name, pages, wds, extra, need):
                     need)
 
 
+def check_jpx(pdf_path):
+    """Every JPX stream of the PDF passes the strict JPEG2000 validator
+    (a packet walk of the in-tree encoder's profile) and decodes with
+    Pillow at its size; in each, the cheapest coded block decodes with
+    the from-spec Tier-1 decoder, and the native coder re-encodes the
+    decoded coefficients to the stored bytes (all but the flush-affected
+    last 4), as ``validate_pdfa(strict_jpx_decode=...)`` checks."""
+    import io
+    from PIL import Image
+    from archive_pdf_tools_tpu.pdf.reader import PdfReader
+    from archive_pdf_tools_tpu.validators.jp2_check import validate_jp2
+    from archive_pdf_tools_tpu.validators.jp2t1_check import decode_block
+    from archive_pdf_tools_tpu_torch.codecs import jp2host
+    lib = jp2host._get_lib()
+    rd = PdfReader(pdf_path)
+    n = 0
+    for page in range(rd.page_count()):
+        for _n, _x, s in rd.page_images(page):
+            if str(rd.resolve(s.dict['Filter'])) != 'JPXDecode':
+                continue
+            blks = []
+            facts = validate_jp2(s.raw, collect_blocks=blks)
+            with Image.open(io.BytesIO(s.raw)) as im:
+                im.load()
+                if im.size != (facts['w'], facts['h']) or not facts[
+                        'packet_walk']:
+                    raise SystemExit('FAIL: JPX stream %d of page %d: '
+                                     'size or packet walk' % (n, page))
+            coded = [b for b in blks if b['npasses']]
+            rec = min(coded, key=lambda b: b['w'] * b['h'] * b['npasses'])
+            mag, sgn = decode_block(rec['data'], rec['w'], rec['h'],
+                                    rec['orient'], rec['nbps'],
+                                    rec['npasses'])
+            coeffs = (np.asarray(mag, np.int64)
+                      * (1 - 2 * np.asarray(sgn, np.int64))).astype(
+                          np.int32).reshape(rec['h'], rec['w'])
+            data2, nbps2, np2, _r, _d = jp2host._encode_block(
+                lib, coeffs, rec['orient'], max_passes=rec['npasses'])
+            stored = bytes(rec['data'])
+            k = max(0, min(len(stored), len(data2)) - 4)
+            if (nbps2, np2) != (rec['nbps'], rec['npasses']) or \
+                    bytes(data2[:k]) != stored[:k]:
+                raise SystemExit('FAIL: JPX stream %d of page %d: Tier-1 '
+                                 'decode/re-encode differs' % (n, page))
+            n += 1
+    print('  %d JPX streams: strict validator, Pillow decode and a '
+          'Tier-1 decode/re-encode each' % n)
+    if n != 2 * rd.page_count():
+        raise SystemExit('FAIL: expected 2 JPX streams a page, found %d'
+                         % n)
+
+
 def phase_from_pdf(tmp, pages, wds, need):
     """--from-pdf with -T on a PDF that Pillow writes, one JPEG a page."""
     from PIL import Image
@@ -502,19 +618,22 @@ def phase_small_book(tmp):
     hocr_path = os.path.join(tmp, 'small.hocr')
     with open(hocr_path, 'w', encoding='utf-8') as fp:
         fp.write(fx.HOCR_TEMPLATE % '\n'.join(hocr))
-    outs = {}
-    for dev in (DEV, 'cpu'):
-        outs[dev] = os.path.join(tmp, 'small_%s.pdf'
-                                 % ('card' if dev == DEV else 'cpu'))
-        recode(from_imagestack=os.path.join(tmp, 'small_*.png'),
-               hocr_file=hocr_path, out_pdf=outs[dev], dpi=100, jbig2=True,
-               device=dev)
-    with open(outs[DEV], 'rb') as a, open(outs['cpu'], 'rb') as b:
-        same = a.read() == b.read()
-    print('phase 3b: 3-page noise-free worded book, card vs CPU plain '
-          'path: %s' % ('byte-identical' if same else 'DIFFERENT'))
-    if not same:
-        raise SystemExit('FAIL: card and CPU recode differ')
+    for impl, sfx in (('pillow', ''), ('tpu', '_tpu')):
+        outs = {}
+        for dev in (DEV, 'cpu'):
+            outs[dev] = os.path.join(tmp, 'small%s_%s.pdf' % (
+                sfx, 'card' if dev == DEV else 'cpu'))
+            recode(from_imagestack=os.path.join(tmp, 'small_*.png'),
+                   hocr_file=hocr_path, out_pdf=outs[dev], dpi=100,
+                   jbig2=True, jpeg2000_implementation=impl, device=dev)
+        with open(outs[DEV], 'rb') as a, open(outs['cpu'], 'rb') as b:
+            same = a.read() == b.read()
+        print('phase 3b: 3-page noise-free worded book, -J %s, card vs CPU '
+              'plain path: %s' % (impl, 'byte-identical' if same
+                                  else 'DIFFERENT'))
+        if not same:
+            raise SystemExit('FAIL: card and CPU recode differ (-J %s)'
+                             % impl)
 
 
 def phase_small_from_pdf(tmp, need):
@@ -591,6 +710,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    t_start = time.time()
     smi = phase_build()
     t0 = time.time()
     book = make_pages()
@@ -605,9 +725,15 @@ def main():
     with tempfile.TemporaryDirectory(prefix='chip_smoke') as tmp:
         launches = run_book(tmp, 'book', pages, wds, [], lined)
         run_book(tmp, 'bgds', pages, wds, ['--bg-downsample', '3'], lined)
+        # -J tpu with page 3 HQ: the batch transform of the other pages'
+        # layers (fg in groups of 4), the HQ page's layers alone
+        tpu = run_book(tmp, 'tpu', pages, wds, ['-J', 'tpu', '--hq-pages',
+                                                '3'], dict(lined, dwt97=8))
+        check_jpx(os.path.join(tmp, 'tpu.pdf'))
+        launches['dwt97'] = tpu['dwt97']
         run_book(tmp, 'noword', pages[:BATCH], [[]] * BATCH, [],
                  dict(every, blur_sauvola=1, despeckle=1, optimise=2))
-        # one batch with lines: each kernel at least once, K1 twice
+        # at least one batch with lines: each kernel once, K1 twice
         one_batch = dict(blur_sauvola=1, despeckle=1, optimise=2,
                          line_sauvola=1, paste=1)
         phase_from_pdf(tmp, pages[:BATCH], wds[:BATCH], one_batch)
@@ -632,6 +758,7 @@ def main():
             'replaces': ABLATE, 'launches': ablate_launches[v],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms']})
+    print('chip_smoke wall time: %.1f s' % (time.time() - t_start))
     print(smi)
     print(json.dumps({'kernels': summary}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,6 +1,6 @@
 """The PyTorch port never imports jax, and its main path (hOCR lines,
-layer downsampling, scandata and --from-pdf included) needs no lxml (GPU
-machines may not ship it)."""
+layer downsampling, scandata, --from-pdf and -J tpu included) needs no
+lxml (GPU machines may not ship it)."""
 
 import os
 import subprocess
@@ -17,7 +17,8 @@ for name in names:
     importlib.import_module(name)
 for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize',
              'ops.threshold_ablate_cuda', 'tools.threshold_ablate',
-             'inputs.scandata', 'pdf.raster'):
+             'inputs.scandata', 'pdf.raster', 'ops.dwt97', 'ops.dwt97_cuda',
+             'codecs.jp2host', 'codecs.jp2tpu', 'codecs.mrc_encode'):
     assert pkg.__name__ + '.' + name in names, name
 print(len(names), 'jax' in sys.modules)
 '''
@@ -42,7 +43,8 @@ with open(tmp + '/book.hocr', 'w') as fp:
     fp.write(HOCR_TEMPLATE %% words_to_hocr_page(words, 200, 260, dpi=100))
 rc = main(['--from-imagestack', tmp + '/page_*.png', '--hocr-file',
            tmp + '/book.hocr', '--dpi', '100', '-o', tmp + '/out.pdf',
-           '--device', 'cpu', '--threads', '2', '--bg-downsample', '3'])
+           '--device', 'cpu', '--threads', '2', '--bg-downsample', '3']
+          + %(extra)r)
 validate_pdfa(tmp + '/out.pdf')
 print('rc', rc)
 '''
@@ -107,13 +109,23 @@ def test_port_imports_no_jax():
     assert has_jax == 'False'
 
 
-def test_main_path_runs_without_jax_and_lxml(tmp_path):
+def _run_main_path(tmp_path, extra):
     code = _RECODE_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
-                                   'tests': os.path.join(ROOT, 'tests')}
+                                   'tests': os.path.join(ROOT, 'tests'),
+                                   'extra': extra}
     r = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, env=_env(), timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().endswith('rc 0')
+
+
+def test_main_path_runs_without_jax_and_lxml(tmp_path):
+    _run_main_path(tmp_path, [])
+
+
+def test_tpu_jpeg2000_runs_without_jax_and_lxml(tmp_path):
+    """-J tpu: the port's transform and the copied host encoder."""
+    _run_main_path(tmp_path, ['-J', 'tpu'])
 
 
 def test_scandata_and_from_pdf_run_without_jax_and_lxml(tmp_path):

@@ -97,6 +97,52 @@ def test_worded_book_byte_identical_with_jax(tmp_path, monkeypatch):
     assert ours.read_bytes() == ref.read_bytes()
 
 
+@pytest.mark.parametrize('n_pages,mode,extra', [
+    (3, 'RGB', {}), (3, 'RGB', {'hq_pages': '2'}),
+    (3, 'RGB', {'hq_pages': '1,2,3'}), (5, 'L', {})])
+def test_tpu_recode_byte_identical_with_jax(tmp_path, monkeypatch, n_pages,
+                                            mode, extra):
+    """-J tpu at its default flags (pack4 for fg and bg), with one HQ page
+    in a mixed batch (encoded alone at the HQ ratios), with every page HQ
+    (no batch transform), and on a 5-page book, which both pipelines
+    split into batches of 3 and 2 (the pack shifts are per batch)."""
+    from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
+    from archive_pdf_tools_tpu_torch import recode
+    monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
+    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=n_pages, mode=mode,
+                                        words=True)
+    ours, ref = tmp_path / 'torch.pdf', tmp_path / 'jax.pdf'
+    kw = dict(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
+              jbig2=True, jpeg2000_implementation='tpu', **extra)
+    timing = []
+    monkeypatch.setattr(port_recode, 'get_timing_summary',
+                        lambda t: timing.extend(t) or {})
+    recode(out_pdf=str(ours), device='cpu', verbose=True, **kw)
+    jax_recode(out_pdf=str(ref), **kw)
+    validate_pdfa(str(ours))
+    assert ours.read_bytes() == ref.read_bytes()
+    keys = {k for k, _ in timing}
+    assert {'fg_jp2', 'bg_jp2'} <= keys
+    assert ('jp2_batch_transform' in keys) == (extra.get('hq_pages')
+                                               != '1,2,3')
+
+
+def test_tpu_bg_downsample_matches_jax_sizes(tmp_path):
+    from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
+    from archive_pdf_tools_tpu_torch import recode
+    glob_pat, hocr_path = _no_word_book(tmp_path, words=True)
+    kw = dict(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
+              jpeg2000_implementation='tpu', bg_downsample=3)
+    ours, ref = str(tmp_path / 'torch.pdf'), str(tmp_path / 'jax.pdf')
+    recode(out_pdf=ours, device='cpu', **kw)
+    validate_pdfa(ours)
+    jax_recode(out_pdf=ref, **kw)
+    sizes = _image_sizes(ours)
+    assert sizes == _image_sizes(ref)
+    assert all((106, 138) in page for page in sizes)
+
+
 def test_producer_names_the_torch_engine(tmp_path, monkeypatch):
     from archive_pdf_tools_tpu_torch import recode
     glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=1, words=True)
@@ -201,18 +247,21 @@ def test_cli_recodes_on_cpu_and_refuses_without_gpu(tmp_path):
     {'jbig2_bands': 2},
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, kw):
-    """The downsampling options and ``from_pdf`` are ported now: each runs
-    on a worded book (``from_pdf``: the JAX package's PDF of it) and gives
-    the JAX package's PDF (the bytes with ``downsample`` and
-    ``from_pdf``, where no float sum on the device enters; the image
-    sizes where a layer shrinks on the device, whose float sums may
-    differ by 1 LSB).  The other options still raise."""
+    """The downsampling options, ``from_pdf`` and ``-J tpu`` are ported
+    now: each runs on a worded book (``from_pdf``: the JAX package's PDF
+    of it) and gives the JAX package's PDF (the bytes with
+    ``downsample``, ``from_pdf`` and ``-J tpu``, where no float sum on the
+    device enters; the image sizes where a layer shrinks on the device,
+    whose float sums may differ by 1 LSB).  The other options still
+    raise."""
     from archive_pdf_tools_tpu_torch import recode
     args = dict(from_imagestack=str(tmp_path / '*.png'),
                 hocr_file=str(tmp_path / 'x.hocr'),
                 out_pdf=str(tmp_path / 'o.pdf'), device='cpu')
     args.update(kw)
-    if not any(k.endswith('downsample') or k == 'from_pdf' for k in kw):
+    ported = [k for k in kw if k.endswith('downsample') or k in (
+        'from_pdf', 'jpeg2000_implementation')]
+    if not ported:
         with pytest.raises(NotImplementedError):
             recode(**args)
         return
@@ -234,7 +283,7 @@ def test_unported_options_raise(tmp_path, monkeypatch, kw):
     del args['device']
     jax_recode(**dict(args, out_pdf=ref))
     assert _image_sizes(args['out_pdf']) == _image_sizes(ref)
-    if 'downsample' in kw or 'from_pdf' in kw:
+    if not any(k.endswith('_downsample') for k in kw):
         with open(args['out_pdf'], 'rb') as a, open(ref, 'rb') as b:
             assert a.read() == b.read()
 
