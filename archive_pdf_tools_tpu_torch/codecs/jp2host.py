@@ -19,7 +19,8 @@ verbatim copy of its jax-free parts, in the source's order:
   (``:1603-1633``), ``_AsyncMeta`` (``:1658-1676``) and
   ``encode_jp2_from_qbands`` (``:1924-1940``).
 
-The only edit is the absolute import of ``ensure_so`` in ``_get_lib``.
+The only edits: the library is built into the port's ``build/``
+(``_SO_PATH``), by the port's copy of ``utils/nativebuild``.
 The device side (the transform, the pack requantisation on the device
 and the batch API) is the port's ``codecs/jp2tpu.py``.
 """
@@ -69,7 +70,8 @@ ICT_FIX = [[round(c * 65536) for c in row] for row in
             [0.5, -0.41869, -0.08131]]]
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), 'native')
-_SO_PATH = os.path.join(_NATIVE_DIR, 'libjp2t1.so')
+_SO_PATH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'build', 'libjp2t1.so')
 _lib = None
 
 
@@ -83,7 +85,7 @@ def _get_lib():
     # path; -mfma makes those fmaf calls single instructions
     # (fallback build without it still computes the same values via
     # libm fmaf, just slower).
-    from archive_pdf_tools_tpu.utils.nativebuild import ensure_so
+    from ..utils.nativebuild import ensure_so
     flags = ['-O3', '-fPIC', '-std=c++17', '-ffp-contract=off']
     ensure_so(_SO_PATH, [src], [flags + ['-mfma'], flags])
     lib = ctypes.CDLL(_SO_PATH)

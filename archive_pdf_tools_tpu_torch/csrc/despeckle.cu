@@ -10,106 +10,298 @@
 //   and columns (< 2, >= h-2 / w-2) and zero pixels keep their value.
 //
 // What bounds it: two true recurrences, over rows (TOP reads the final
-//   rows above) and within a row (the last two produced bits).  The row
-//   walk is latency-bound; bytes and operations are small.
+//   rows above) and within a row (the last two produced bits).  A page is
+//   a dependent chain of H row steps, so a launch takes about H times the
+//   latency of one row step, far above the time its bytes need at 3.35
+//   TB/s: the kernel stays latency-bound.  With one CTA a page on its own
+//   SM, a row step costs what that SM issues for the row, so the design
+//   cuts the instructions a row takes.
 //
-// Design: one CTA per page walks the rows.  Per row, all threads compute
-//   tau = mincnt - TOP - BOT - CUR for every column in parallel and store
-//   each column as an 8-bit transition map (2-bit next state for each of
-//   the 4 states "last two produced bits") in shared memory.  Warp 0 then
-//   resolves the row: each lane composes the maps of its chunk of
-//   columns, a __shfl_up_sync inclusive scan composes the lanes' maps, and
-//   each lane replays its chunk from its start state, writing the final
-//   row.  TOP reads the two final rows from the output, which this CTA
-//   wrote; __syncthreads() orders the rows.  The JAX package's bit-plane
-//   and packed-table variants are the same function and are not needed.
+// Design, three kernels:
+//   pack_kernel packs the bool mask into bit rows (a word per 32 columns,
+//     one __ballot_sync each), fully parallel; unpack_kernel writes the
+//     final bit rows back as bytes.  The walk reads and writes one word a
+//     thread a row, coalesced, and never reads back what it wrote.
+//   despeckle_kernel: one CTA per page walks the rows; thread t owns the
+//     32 columns of word t.  Shared memory holds the original rows y..y+3
+//     and the final rows y-4..y-1 as bit rows (rings of 4), and two tables
+//     of 4-column steps.  The original row y+4 is loaded into a register
+//     while row y resolves.  Per row:
+//   - BOT + CUR as a bit-sliced sum of 12 shifted words (carry-save
+//     adders on whole words: 32 columns an instruction);
+//   - barrier A publishes the final row y-1;
+//   - TOP, the same way from the final rows y-1 and y-2, added in; three
+//     bit-sliced comparisons with mincnt give each column one of four
+//     kinds: always 1 (count >= mincnt), "either of the two last bits"
+//     (mincnt - 1), "both" (mincnt - 2), always 0 (else, and every forced
+//     zero); a forced set pixel is "always 1";
+//   - the thread's 4-state transition map of its 32 columns from a table
+//     of 4-column maps (256 entries), composed right to left with one
+//     byte permute each; a warp-shuffle scan composes the lanes' maps,
+//     barrier B publishes the warps' maps, and each thread applies those
+//     of the warps to its left to start state 0, then replays its columns
+//     4 at a time from a table of (state, 4 kinds) -> (4 bits, state).
+//   Composition is associative, so the result is the sequential one.
+//   Two barriers a row; batch 8 is 8 chains on 132 SMs, inherent.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// apply map a, then map b (4 states, 2 bits each)
-__device__ __forceinline__ uint32_t compose(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const uint32_t as = (a >> (2 * s)) & 3u;
-    r |= ((b >> (2 * as)) & 3u) << (2 * s);
-  }
-  return r;
+// full adder on 32 columns at once
+__device__ __forceinline__ void fa(uint32_t a, uint32_t b, uint32_t c,
+                                   uint32_t& s, uint32_t& cy) {
+  s = a ^ b ^ c;
+  cy = (a & b) | (c & (a ^ b));
 }
 
-__global__ void despeckle_kernel(const uint8_t* __restrict__ in,
-                                 uint8_t* out, int H, int W, int mincnt) {
-  extern __shared__ uint8_t maps[];
-  const size_t plane = (size_t)H * W;
-  const uint8_t* m = in + blockIdx.x * plane;
-  uint8_t* o = out + blockIdx.x * plane;
+// bit (x + k) for the 32 columns x of word `cur`, -2 <= k <= 2
+__device__ __forceinline__ uint32_t shifted(uint32_t prev, uint32_t cur,
+                                            uint32_t next, int k) {
+  return k >= 0 ? __funnelshift_r(cur, next, k)
+                : __funnelshift_l(prev, cur, -k);
+}
+
+// a map's byte form (byte s = next state from state s) as the selector of
+// __byte_perm (nibble s)
+__device__ __forceinline__ uint32_t selector(uint32_t bf) {
+  return __byte_perm(bf | (bf >> 4), 0, 0x4420);
+}
+
+// 5-bit count >= m (m uniform over the block), bit-sliced
+__device__ __forceinline__ uint32_t count_ge(const uint32_t* c, int m) {
+  if (m <= 0) return ~0u;
+  if (m > 31) return 0u;
+  uint32_t gt = 0u, eq = ~0u;
+#pragma unroll
+  for (int i = 4; i >= 0; --i) {
+    if ((m >> i) & 1) {
+      eq &= c[i];
+    } else {
+      gt |= eq & c[i];
+      eq &= ~c[i];
+    }
+  }
+  return gt | eq;
+}
+
+__device__ __forceinline__ uint32_t count_eq(const uint32_t* c, int m) {
+  if (m < 0 || m > 31) return 0u;
+  uint32_t eq = ~0u;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) eq &= ((m >> i) & 1) ? c[i] : ~c[i];
+  return eq;
+}
+
+// bool (B*H, W) -> bit rows (B*H, T) words, bit j of word k = column 32k+j
+__global__ void pack_kernel(const uint8_t* __restrict__ in,
+                            uint32_t* __restrict__ bits, int rows, int W,
+                            int T) {
+  const int lane = threadIdx.x & 31;
+  const size_t warps = ((size_t)gridDim.x * blockDim.x) >> 5;
+  const size_t total = (size_t)rows * T;
+  for (size_t k = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       k < total; k += warps) {
+    const size_t r = k / T;
+    const int x = 32 * (int)(k - r * T) + lane;
+    const bool v = x < W && in[r * W + x] != 0;
+    const uint32_t word = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) bits[k] = word;
+  }
+}
+
+// bit rows (B*H, T) -> bool (B*H, W); blockIdx.y strides over the rows
+__global__ void unpack_kernel(const uint32_t* __restrict__ bits,
+                              uint8_t* __restrict__ out, int rows, int W,
+                              int T) {
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const uint32_t* br = bits + (size_t)r * T;
+    uint8_t* orow = out + (size_t)r * W;
+    for (int x = blockIdx.x * blockDim.x + threadIdx.x; x < W;
+         x += gridDim.x * blockDim.x)
+      orow[x] = (uint8_t)((br[x >> 5] >> (x & 31)) & 1u);
+  }
+}
+
+__global__ void __launch_bounds__(1024)
+despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                 int H, int W, int mincnt) {
+  extern __shared__ __align__(16) uint32_t dsm[];
+  const int T = blockDim.x;
+  const int stride = T + 2;                   // a zero word each side
+  uint32_t* orig = dsm + 1;                   // 4 bit rows, original
+  uint32_t* fin = dsm + 4 * stride + 1;       // 4 bit rows, final
+  uint32_t* agg = dsm + 8 * stride;           // a map per warp
+  uint32_t* lut_bf = agg + 32;                // 4-column map, byte form
+  uint32_t* lut_nf = lut_bf + 256;            // the same as a selector
+  uint8_t* lut_rep = (uint8_t*)(lut_nf + 256);  // (state, kinds) -> bits
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const uint32_t* m = in + (size_t)blockIdx.x * H * T + t;
+  uint32_t* o = out + (size_t)blockIdx.x * H * T + t;
+
+  for (int i = t; i < 8 * stride; i += T) dsm[i] = 0u;
+  // the tables: index a | b << 4 holds the kinds of 4 columns, column j
+  // in bit j of a ("always 1" or "both") and of b ("either" or "both")
+  for (int idx = t; idx < 256; idx += T) {
+    uint32_t bf = 0u;
+    for (int s = 0; s < 4; ++s) {
+      uint32_t p0 = s & 1, p1 = s >> 1, bits = 0u;
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t a = (idx >> j) & 1u, b = (idx >> (4 + j)) & 1u;
+        const uint32_t u = (a & (b ^ 1u)) | (b & (a ^ 1u) & (p0 | p1))
+                           | (a & b & p0 & p1);
+        bits |= u << j;
+        p1 = p0;
+        p0 = u;
+      }
+      const uint32_t e = p0 | (p1 << 1);
+      bf |= e << (8 * s);
+      lut_rep[s * 256 + idx] = (uint8_t)(bits | (e << 4));
+    }
+    lut_bf[idx] = bf;
+    lut_nf[idx] = selector(bf);
+  }
+  // interior columns 2..W-3 of this word
+  uint32_t interior = 0u;
+  for (int j = 0; j < 32; ++j) {
+    const int x = 32 * t + j;
+    interior |= (uint32_t)(x >= 2 && x < W - 2) << j;
+  }
+  __syncthreads();
+  for (int r = 0; r < 3 && r < H; ++r) orig[r * stride + t] = m[(size_t)r * T];
+  uint32_t pend = 3 < H ? m[(size_t)3 * T] : 0u;
+  __syncthreads();
 
   for (int y = 0; y < H; ++y) {
     const bool row_border = y < 2 || y >= H - 2;
-    const uint8_t* r0 = m + (size_t)y * W;
-    for (int x = threadIdx.x; x < W; x += blockDim.x) {
-      const int v = r0[x] != 0;
-      uint32_t map = 0;
-      if (row_border || v == 0 || x < 2 || x >= W - 2) {
-#pragma unroll
-        for (int s = 0; s < 4; ++s) map |= (((s << 1) | v) & 3u) << (2 * s);
-      } else {
-        const uint8_t* f1 = o + (size_t)(y - 1) * W;
-        const uint8_t* f2 = o + (size_t)(y - 2) * W;
-        const uint8_t* b1 = m + (size_t)(y + 1) * W;
-        const uint8_t* b2 = m + (size_t)(y + 2) * W;
-        int cnt = (r0[x + 1] != 0) + (r0[x + 2] != 0);
-#pragma unroll
-        for (int dx = -2; dx <= 2; ++dx) {
-          cnt += f1[x + dx] + f2[x + dx];
-          cnt += (b1[x + dx] != 0) + (b2[x + dx] != 0);
-        }
-        const int tau = mincnt - cnt;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int u = __popc(s) >= tau;
-          map |= (((s << 1) | u) & 3u) << (2 * s);
-        }
-      }
-      maps[x] = (uint8_t)map;
+    const uint32_t* r0 = orig + (y & 3) * stride;
+    const uint32_t own = r0[t];
+    uint32_t bc[4];                           // BOT + CUR, bit-sliced
+    if (!row_border) {
+      const uint32_t* r1 = orig + ((y + 1) & 3) * stride;
+      const uint32_t* r2 = orig + ((y + 2) & 3) * stride;
+      const uint32_t a0 = r1[t - 1], a1 = r1[t], a2 = r1[t + 1];
+      const uint32_t b0 = r2[t - 1], b1 = r2[t], b2 = r2[t + 1];
+      const uint32_t c2 = r0[t + 1];
+      uint32_t s1, s2, s3, s4, s5, k1, k2, k3, k4, k5;
+      fa(shifted(a0, a1, a2, -2), shifted(a0, a1, a2, -1), a1, s1, k1);
+      fa(shifted(a0, a1, a2, 1), shifted(a0, a1, a2, 2),
+         shifted(b0, b1, b2, -2), s2, k2);
+      fa(shifted(b0, b1, b2, -1), b1, shifted(b0, b1, b2, 1), s3, k3);
+      fa(shifted(b0, b1, b2, 2), shifted(0u, own, c2, 1),
+         shifted(0u, own, c2, 2), s4, k4);
+      fa(s1, s2, s3, s5, k5);
+      bc[0] = s5 ^ s4;
+      const uint32_t k6 = s5 & s4;
+      uint32_t u1, u2, d1, d2;
+      fa(k1, k2, k3, u1, d1);
+      fa(k4, k5, k6, u2, d2);
+      bc[1] = u1 ^ u2;
+      fa(d1, d2, u1 & u2, bc[2], bc[3]);      // BOT + CUR <= 12
     }
-    __syncthreads();
+    // original row y+3 into the ring; row y+4 on its way
+    orig[((y + 3) & 3) * stride + t] = pend;
+    pend = y + 4 < H ? m[(size_t)(y + 4) * T] : 0u;
+    __syncthreads();                          // A: final row y-1 is done
 
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      const int chunk = (W + 31) / 32;
-      const int x0 = min(lane * chunk, W);
-      const int x1 = min(x0 + chunk, W);
-      uint32_t f = 0xE4u;                      // identity map
-      for (int x = x0; x < x1; ++x) f = compose(f, maps[x]);
+    uint32_t bits = own;
+    if (!row_border) {
+      // TOP: the vertical count of rows y-1, y-2 is lo + 2 hi
+      const uint32_t* f1 = fin + ((y - 1) & 3) * stride;
+      const uint32_t* f2 = fin + ((y - 2) & 3) * stride;
+      const uint32_t g0 = f1[t - 1], g1 = f1[t], g2 = f1[t + 1];
+      const uint32_t h0 = f2[t - 1], h1 = f2[t], h2 = f2[t + 1];
+      const uint32_t l0 = g0 ^ h0, l1 = g1 ^ h1, l2 = g2 ^ h2;
+      const uint32_t q0 = g0 & h0, q1 = g1 & h1, q2 = g2 & h2;
+      uint32_t w1, e1, w3, e3, w4, e4, w5, e5, w6, e6;
+      fa(shifted(l0, l1, l2, -2), shifted(l0, l1, l2, -1), l1, w1, e1);
+      const uint32_t lp1 = shifted(l0, l1, l2, 1);
+      const uint32_t lp2 = shifted(l0, l1, l2, 2);
+      const uint32_t w2 = lp1 ^ lp2, e2 = lp1 & lp2;
+      const uint32_t top0 = w1 ^ w2;
+      const uint32_t e0 = w1 & w2;
+      fa(shifted(q0, q1, q2, -2), shifted(q0, q1, q2, -1), q1, w3, e3);
+      fa(shifted(q0, q1, q2, 1), shifted(q0, q1, q2, 2), e1, w4, e4);
+      fa(e2, e0, w3, w5, e5);
+      const uint32_t top1 = w4 ^ w5;
+      const uint32_t e7 = w4 & w5;
+      fa(e3, e4, e5, w6, e6);
+      const uint32_t top2 = w6 ^ e7;
+      const uint32_t top3 = e6 | (w6 & e7);   // TOP <= 10
+      // count = BOT + CUR + TOP, 5 bits
+      uint32_t c[5], cy;
+      c[0] = bc[0] ^ top0;
+      cy = bc[0] & top0;
+      fa(bc[1], top1, cy, c[1], cy);
+      fa(bc[2], top2, cy, c[2], cy);
+      fa(bc[3], top3, cy, c[3], c[4]);
+      const uint32_t one = count_ge(c, mincnt);
+      const uint32_t either = count_eq(c, mincnt - 1);
+      const uint32_t both = count_eq(c, mincnt - 2);
+      const uint32_t inner = own & interior;
+      const uint32_t ka = (inner & (one | both)) | (own & ~interior);
+      const uint32_t kb = inner & (either | both);
+      // the kinds of the 8 groups of 4 columns as table indices: bytes
+      // of ev are groups 0, 2, 4, 6, of od groups 1, 3, 5, 7
+      const uint32_t ev = (ka & 0x0F0F0F0Fu) | ((kb & 0x0F0F0F0Fu) << 4);
+      const uint32_t od = ((ka >> 4) & 0x0F0F0F0Fu) | (kb & 0xF0F0F0F0u);
+      uint32_t idx[8];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        idx[2 * g] = (ev >> (8 * g)) & 0xFFu;
+        idx[2 * g + 1] = (od >> (8 * g)) & 0xFFu;
+      }
+      // this thread's map, composed right to left
+      uint32_t map = lut_bf[idx[7]];
+#pragma unroll
+      for (int g = 6; g >= 0; --g) map = __byte_perm(map, 0, lut_nf[idx[g]]);
+      // inclusive scan over the lanes: map := map o (lanes to the left)
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
-        const uint32_t g = __shfl_up_sync(0xffffffffu, f, d);
-        if (lane >= d) f = compose(g, f);
+        const uint32_t left = __shfl_up_sync(0xffffffffu, map, d);
+        if (lane >= d) map = __byte_perm(map, 0, selector(left));
       }
-      const uint32_t pre = __shfl_up_sync(0xffffffffu, f, 1);
-      uint32_t s = lane == 0 ? 0u : (pre & 3u);  // state entering x0
-      uint8_t* orow = o + (size_t)y * W;
-      for (int x = x0; x < x1; ++x) {
-        s = (maps[x] >> (2 * s)) & 3u;
-        orow[x] = (uint8_t)(s & 1u);
+      if (lane == 31) agg[warp] = map;
+      const uint32_t excl = __shfl_up_sync(0xffffffffu, map, 1);
+      __syncthreads();                        // B: the warps' maps
+      uint32_t s = 0u;
+      for (int w = 0; w < warp; ++w) s = (agg[w] >> (8 * s)) & 3u;
+      if (lane > 0) s = (excl >> (8 * s)) & 3u;
+      bits = 0u;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const uint32_t rep = lut_rep[s * 256 + idx[g]];
+        bits |= (rep & 15u) << (4 * g);
+        s = rep >> 4;
       }
     }
-    __syncthreads();
+    fin[(y & 3) * stride + t] = bits;
+    o[(size_t)y * T] = bits;
   }
 }
 
-extern "C" int apt_despeckle(const void* mask, void* out, int B, int H,
-                             int W, int mincnt, void* stream) {
-  const size_t smem = (size_t)W;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        despeckle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  despeckle_kernel<<<B, 256, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (uint8_t*)out, H, W, mincnt);
+// bits: 2 * B * H * T uint32 of scratch, T = walk threads
+// (ops/denoise_cuda.py sizes it the same way)
+extern "C" int apt_despeckle(const void* mask, void* bits, void* out, int B,
+                             int H, int W, int mincnt, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return 0;     // nothing to despeckle
+  const int T = ((W + 31) / 32 + 31) / 32 * 32;
+  if (T > 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rows = B * H;
+  uint32_t* packed = (uint32_t*)bits;
+  uint32_t* fbits = packed + (size_t)rows * T;
+  pack_kernel<<<1024, 256, 0, st>>>((const uint8_t*)mask, packed, rows, W,
+                                    T);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)(8 * (T + 2) + 32 + 512) * 4 + 1024;
+  despeckle_kernel<<<B, T, smem, st>>>(packed, fbits, H, W, mincnt);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int gx = (W + 255) / 256;
+  unpack_kernel<<<dim3(gx, rows < 4096 ? rows : 4096), 256, 0, st>>>(
+      fbits, (uint8_t*)out, rows, W, T);
   return (int)cudaGetLastError();
 }

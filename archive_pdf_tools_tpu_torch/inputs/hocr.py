@@ -9,7 +9,6 @@ been yielded.  Unlike lxml's ``recover=True`` mode, malformed XML
 raises ``xml.etree.ElementTree.ParseError``.
 """
 
-import sys
 import xml.etree.ElementTree as ET
 
 WRITING_DIRECTION_UNSPECIFIED = 0
@@ -151,20 +150,3 @@ def hocr_page_to_word_data(page, scaler=1):
             paragraphs.append({'lines': lines})
     return paragraphs
 
-
-def _stand_in_for_the_lxml_reader():
-    """The JAX package's ``pdf/textlayer.py`` (imported by the shared PDF
-    builder) takes its writing-direction constants from
-    ``archive_pdf_tools_tpu.inputs.hocr``, which needs lxml.  Where lxml
-    is not installed, this module -- the same constants and functions --
-    stands in under that name, so the builder imports."""
-    name = 'archive_pdf_tools_tpu.inputs.hocr'
-    if name in sys.modules:
-        return
-    try:
-        import lxml  # noqa: F401
-    except ImportError:
-        sys.modules[name] = sys.modules[__name__]
-
-
-_stand_in_for_the_lxml_reader()

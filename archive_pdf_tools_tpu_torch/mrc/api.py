@@ -21,16 +21,15 @@ import time as _time
 import numpy as np
 import torch
 
-from archive_pdf_tools_tpu.const import (
+from ..const import (
     DENOISE_FAST, DENOISE_NONE, RECODE_RUNTIME_WARNING_TOO_SMALL_TO_DOWNSAMPLE)
-from archive_pdf_tools_tpu.mrc.hocr_prep import prepare_lines
-
 from ..ops.lines_cuda import RaggedLines, line_thresholds
 from ..ops.paste_cuda import paste_lines
 from ..ops.resize import downsample_layer
 from ..ops.sauvola import sauvola_window
 from ..utils.backend import resolve_device, synchronize
 from . import decompose as D
+from .hocr_prep import prepare_lines
 
 
 class TimingData:

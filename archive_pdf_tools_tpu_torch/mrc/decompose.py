@@ -11,10 +11,9 @@ PyTorch version for a CPU tensor.
 import numpy as np
 import torch
 
-from archive_pdf_tools_tpu.const import DENOISE_FAST, DENOISE_NONE
-from archive_pdf_tools_tpu.ops.golden import estimate_sigma_np
-
+from ..const import DENOISE_FAST, DENOISE_NONE
 from ..ops.sigma import estimate_noise
+from ..ops.sigma_np import estimate_sigma_np
 from ..ops.threshold_cuda import (MAX_BLUR_RADIUS, RADIUS_BUCKETS,
                                   blur_sauvola)
 from ..ops.denoise_cuda import fast_mask_denoise

@@ -3,7 +3,8 @@
 
 A CPU tensor runs the plain PyTorch version (``ops/denoise.py``); a CUDA
 tensor launches the kernel or raises.  ``fast_mask_denoise.launches``
-counts the kernel launches.
+counts the calls that launch it (a bit packing pass, the row walk, the
+unpacking pass).
 """
 
 import ctypes
@@ -15,9 +16,9 @@ from .denoise import fast_mask_denoise_exact
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {'apt_despeckle': [_P, _P, _I, _I, _I, _I, _P]}
+_SIGNATURES = {'apt_despeckle': [_P, _P, _P, _I, _I, _I, _I, _P]}
 
-MAX_WIDTH = 227 * 1024          # one transition-map byte per column
+MAX_WIDTH = 32 * 1024    # 32 columns a thread, one CTA of <= 1024 a page
 
 
 def fast_mask_denoise(mask, mincnt=4, n_size=2):
@@ -42,10 +43,14 @@ def fast_mask_denoise(mask, mincnt=4, n_size=2):
                          'limit %d' % (w, MAX_WIDTH))
     lib = cudabuild.load('despeckle', _SIGNATURES)
     out = torch.empty_like(mask)
+    # the packed input and the final bit rows, a word per 32 columns
+    words = (-(-w // 32) + 31) // 32 * 32
+    bits = torch.empty((2 * b * h * words,), dtype=torch.int32,
+                       device=mask.device)
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream(mask.device).cuda_stream
-        err = lib.apt_despeckle(mask.data_ptr(), out.data_ptr(), b, h, w,
-                                int(mincnt), stream)
+        err = lib.apt_despeckle(mask.data_ptr(), bits.data_ptr(),
+                                out.data_ptr(), b, h, w, int(mincnt), stream)
     cudabuild.check(err, 'fast_mask_denoise')
     fast_mask_denoise.launches += 1
     return out

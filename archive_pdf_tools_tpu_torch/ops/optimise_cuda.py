@@ -3,7 +3,7 @@
 
 A CPU tensor runs the plain PyTorch version (``ops/optimise.py``); a CUDA
 tensor launches the kernel or raises.  ``optimise.launches`` counts the
-kernel launches.
+calls that launch it (a parallel FIR pre-pass, then the row walk).
 """
 
 import ctypes
@@ -15,10 +15,46 @@ from .optimise import optimise as optimise_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {'apt_optimise': [_P, _P, _P, _I, _I, _I, _I, _I, _P]}
+_SIGNATURES = {'apt_optimise': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P]}
 
-# 3 int32 column arrays per row walk in at most 227 KB of shared memory
-MAX_WIDTH = (227 * 1024) // 12
+COLS = 8                   # columns a thread of the row walk owns
+MAX_THREADS = 1024         # threads of one CTA of the row walk
+MAX_CLUSTER = 8            # CTAs a row may be split over (a cluster)
+MAX_N = 22                 # FIR sum and count share one uint32 a pixel
+SMEM = 227 * 1024          # shared memory a CTA may use
+
+
+def pitch(w):
+    """Columns of a strip of w: COLS columns a thread, whole warps."""
+    return COLS * ((-(-w // COLS) + 31) // 32 * 32)
+
+
+def walk_smem(q, n):
+    """Shared bytes of a CTA of the row walk with a strip of q columns
+    (q a pitch): 4 FIR rows in flight, two colI rows (32 halo columns, a
+    spare word after every 8), two staged output rows, the reciprocal
+    table, the last n output rows."""
+    return (16 * q + 9 * (q + 32) + 2 * (q + 16)
+            + 4 * (2048 + (n * n + 3) // 4 * 4) + n * q)
+
+
+def strips(w, n):
+    """The least number of CTAs K (a cluster) over which a row of w
+    columns fits the shared memory at n, or None past MAX_CLUSTER."""
+    for k in range(1, MAX_CLUSTER + 1):
+        q = pitch(-(-w // k))
+        if q <= COLS * MAX_THREADS and walk_smem(q, n) <= SMEM:
+            return k
+    return None
+
+
+def max_width(n):
+    """The widest row the kernel takes at n."""
+    q = COLS * MAX_THREADS
+    while walk_smem(q, n) > SMEM:
+        q -= COLS * 32
+    return MAX_CLUSTER * q
 
 
 def _check(mask, img):
@@ -47,16 +83,29 @@ def optimise(mask, img, n_size):
         raise ValueError('optimise: inputs must be contiguous')
     b, h, w = mask.shape
     c = 1 if img.dim() == 3 else img.shape[3]
-    if w > MAX_WIDTH:
-        raise ValueError('optimise: width %d exceeds the kernel limit %d'
-                         % (w, MAX_WIDTH))
+    n = int(n_size)
+    if c > 4:
+        raise ValueError('optimise: the CUDA kernel takes 1-4 channels, got '
+                         '%d' % c)
+    if not 1 <= n <= MAX_N:
+        raise ValueError('optimise: the CUDA kernel takes n_size 1..%d, got '
+                         '%d' % (MAX_N, n))
+    k = strips(w, n)
+    if k is None:
+        raise ValueError('optimise: width %d exceeds the kernel limit %d at '
+                         'n=%d' % (w, max_width(n), n))
     lib = cudabuild.load('optimise', _SIGNATURES)
     out = torch.empty_like(img)
+    fir = torch.empty((b * c * h * k * pitch(-(-w // k)),),
+                      dtype=torch.int32, device=img.device)
+    # RGB: the walk writes planes, a last kernel interleaves them
+    planes = torch.empty((b * c * h * w,), dtype=torch.uint8,
+                         device=img.device) if c > 1 else out
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.apt_optimise(img.data_ptr(), mask.data_ptr(),
-                               out.data_ptr(), b, h, w, c, int(n_size),
-                               stream)
+                               fir.data_ptr(), planes.data_ptr(),
+                               out.data_ptr(), b, h, w, c, n, k, stream)
     cudabuild.check(err, 'optimise')
     optimise.launches += 1
     return out

@@ -1,21 +1,1366 @@
-"""Whole-page rendering of ``--from-pdf`` pages that hold several images.
+# Copied from archive_pdf_tools_tpu/pdf/raster.py by
+# archive_pdf_tools_tpu_torch/tools/copy_shared.py; verbatim.
+"""Minimal PDF content-stream rasterizer.
 
-The shared ``archive_pdf_tools_tpu/pdf/raster.py`` interprets the page
-and paints it; it decodes image XObjects through the JAX package's
-``pipeline.recode._decode_pdf_image``, whose module imports jax.  This
-``Rasterizer`` replaces that one method with a copy that calls the port's
-copy of the decoder, and ``render_page_image`` is a copy of the shared
-one on this ``Rasterizer``.  Text extraction (``pdf/textextract.py``)
-runs the shared class in glyph-sink mode, which never decodes an image.
-"""
+The reference leans on PyMuPDF's renderer for three capabilities this
+framework previously lacked (VERDICT round 1, missing #2): page
+colour-mode classification by rendering with images removed
+(``bin/pdf-metadata-json:61-114``), rasterizing arbitrary — including
+vector-only — pages for ``pdf-to-imagestack`` (``bin/pdf-to-
+imagestack:18-72``), and page previews.  This module is a from-scratch
+interpreter of the ISO 32000-1 imaging model covering what those tools
+need:
+
+  * full graphics-state machinery: CTM stack, fill/stroke colours in
+    Gray/RGB/CMYK (+ ICC/Indexed reduced via the reader), line width,
+    raster clip paths;
+  * path construction (m l c v y re h) with bezier flattening and
+    scanline polygon fill in both winding rules, plus quad-based
+    stroking;
+  * real glyph outlines: Tm/Td/TD/T*/TL/Tz/Tc/Tw tracking with
+    per-glyph advances from /Widths, /W or the font program's own
+    metrics, outlines resolved by ``glyphs.GlyphSource`` (embedded
+    TrueType/CFF/Type1 via fontTools, DejaVu stand-ins for
+    non-embedded fonts), Type3 CharProcs executed as content streams,
+    and a metric-box fallback for anything unresolvable;
+  * image XObjects via inverse-mapped nearest-neighbour sampling with
+    SMask alpha and ImageMask stencils (decode via the same per-filter
+    path the recode pipeline uses: DCT/JPX through Pillow, JBIG2 and
+    CCITT through the in-tree codecs);
+  * Form XObjects (Matrix + BBox clip, recursive), inline images
+    (BI/ID/EI), axial/radial shadings with Type 0/2/3 functions,
+    Gouraud mesh shadings (types 4/5 exact triangles, 6/7 Coons/
+    tensor patches tessellated on a parameter grid);
+  * ExtGState: constant alpha (ca/CA), the full blend-mode table
+    (separable + non-separable, ISO 32000-1 11.3.5), transfer
+    functions (TR/TR2) applied to source device values at paint time,
+    and soft-mask groups (/SMask luminosity and alpha subtypes,
+    rendered to a device-space alpha at gs-set time).
+
+Deliberately out of scope: halftone screens (/HT — identity, as in
+any continuous-tone preview renderer; unknown shading/function forms
+still paint 50% gray, colour-mode conservative)."""
+
+import io
+import re
 
 import numpy as np
 
-from archive_pdf_tools_tpu.pdf import raster as _shared
-from archive_pdf_tools_tpu.pdf.reader import PStream
+from .reader import PName, PStream
+
+# matrices are (a, b, c, d, e, f): (x, y) -> (a x + c y + e,
+#                                             b x + d y + f)
+_ID = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
 
 
-class Rasterizer(_shared.Rasterizer):
+def _mat_mul(m, n):
+    a1, b1, c1, d1, e1, f1 = m
+    a2, b2, c2, d2, e2, f2 = n
+    return (a1 * a2 + b1 * c2, a1 * b2 + b1 * d2,
+            c1 * a2 + d1 * c2, c1 * b2 + d1 * d2,
+            e1 * a2 + f1 * c2 + e2, e1 * b2 + f1 * d2 + f2)
+
+
+def _mat_apply(m, x, y):
+    a, b, c, d, e, f = m
+    return (a * x + c * y + e, b * x + d * y + f)
+
+
+def _mat_inv(m):
+    a, b, c, d, e, f = m
+    det = a * d - b * c
+    if abs(det) < 1e-12:
+        return None
+    ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+    ie = -(e * ia + f * ic)
+    if_ = -(e * ib + f * id_)
+    return (ia, ib, ic, id_, ie, if_)
+
+
+def _lum(c):
+    return 0.3 * c[..., 0] + 0.59 * c[..., 1] + 0.11 * c[..., 2]
+
+
+def _clip_color(c):
+    l = _lum(c)[..., None]
+    mn = c.min(-1, keepdims=True)
+    mx = c.max(-1, keepdims=True)
+    c = np.where(mn < 0, l + (c - l) * l / np.maximum(l - mn, 1e-9), c)
+    c = np.where(mx > 1,
+                 l + (c - l) * (1 - l) / np.maximum(mx - l, 1e-9), c)
+    return c
+
+
+def _set_lum(c, l):
+    return _clip_color(c + (l - _lum(c))[..., None])
+
+
+def _set_sat(c, s):
+    mn = c.min(-1, keepdims=True)
+    mx = c.max(-1, keepdims=True)
+    out = (c - mn) * s[..., None] / np.maximum(mx - mn, 1e-9)
+    return np.where(mx > mn, out, 0.0)
+
+
+def _blend_arr(cb, cs, mode):
+    """B(backdrop, source) on float arrays in [0,1] — the full ISO
+    32000-1 11.3.5 table (separable 136 + non-separable 137).  Unknown
+    modes render as Normal, as the spec requires."""
+    if mode == 'Multiply':
+        return cb * cs
+    if mode == 'Screen':
+        return cb + cs - cb * cs
+    if mode == 'Overlay':
+        return _blend_arr(cs, cb, 'HardLight')
+    if mode == 'Darken':
+        return np.minimum(cb, cs)
+    if mode == 'Lighten':
+        return np.maximum(cb, cs)
+    if mode == 'ColorDodge':
+        return np.where(cs >= 1, 1.0,
+                        np.minimum(1.0, cb / np.maximum(1 - cs, 1e-9)))
+    if mode == 'ColorBurn':
+        return np.where(cs <= 0, 0.0,
+                        1 - np.minimum(1.0,
+                                       (1 - cb) / np.maximum(cs, 1e-9)))
+    if mode == 'HardLight':
+        d = 2 * cs - 1
+        return np.where(cs <= 0.5, cb * 2 * cs, cb + d - cb * d)
+    if mode == 'SoftLight':
+        d = np.where(cb <= 0.25, ((16 * cb - 12) * cb + 4) * cb,
+                     np.sqrt(np.maximum(cb, 0.0)))
+        return np.where(cs <= 0.5, cb - (1 - 2 * cs) * cb * (1 - cb),
+                        cb + (2 * cs - 1) * (d - cb))
+    if mode == 'Difference':
+        return np.abs(cb - cs)
+    if mode == 'Exclusion':
+        return cb + cs - 2 * cb * cs
+    if mode == 'Hue':
+        return _set_lum(_set_sat(cs, _sat(cb)), _lum(cb))
+    if mode == 'Saturation':
+        return _set_lum(_set_sat(cb, _sat(cs)), _lum(cb))
+    if mode == 'Color':
+        return _set_lum(cs, _lum(cb))
+    if mode == 'Luminosity':
+        return _set_lum(cb, _lum(cs))
+    return cs            # Normal / Compatible / unrecognized
+
+
+def _sat(c):
+    return c.max(-1) - c.min(-1)
+
+
+def _cmyk_to_rgb(c, m, y, k):
+    return (max(0.0, 1.0 - min(1.0, c + k)),
+            max(0.0, 1.0 - min(1.0, m + k)),
+            max(0.0, 1.0 - min(1.0, y + k)))
+
+
+def _cmyk_to_rgb_arr(c, m, y, k):
+    return (np.clip(1 - np.minimum(1, c + k), 0, 1),
+            np.clip(1 - np.minimum(1, m + k), 0, 1),
+            np.clip(1 - np.minimum(1, y + k), 0, 1))
+
+
+class _GState:
+    __slots__ = ('ctm', 'fill', 'stroke', 'lw', 'clip',
+                 'fill_n', 'stroke_n', 'char_spc', 'word_spc',
+                 'hscale', 'leading', 'font', 'fsize', 'render_mode',
+                 'rise', 'fill_a', 'stroke_a', 'blend', 'tr', 'smask')
+
+    def __init__(self):
+        self.ctm = _ID
+        self.fill = (0.0, 0.0, 0.0)
+        self.stroke = (0.0, 0.0, 0.0)
+        self.lw = 1.0
+        self.clip = None            # None = unclipped, else bool mask
+        self.fill_n = 1
+        self.stroke_n = 1
+        self.fill_a = 1.0           # ExtGState ca
+        self.stroke_a = 1.0         # ExtGState CA
+        self.blend = 'Normal'       # ExtGState BM
+        self.tr = None              # ExtGState TR/TR2 (fn | fn-tuple)
+        self.smask = None           # ExtGState SMask: page (H, W) alpha
+        self.char_spc = 0.0
+        self.word_spc = 0.0
+        self.hscale = 1.0
+        self.leading = 0.0
+        self.font = None
+        self.fsize = 1.0
+        self.render_mode = 0
+        self.rise = 0.0
+
+    def copy(self):
+        g = _GState.__new__(_GState)
+        for s in _GState.__slots__:
+            setattr(g, s, getattr(self, s))
+        return g
+
+
+class _ContentLexer:
+    """Tokenizer for content streams: returns numbers, PName, str
+    (strings), list, dict, or ('op', name)."""
+
+    _WS = b'\x00\t\n\x0c\r '
+    _DELIM = b'()<>[]{}/%'
+
+    def __init__(self, data):
+        self.data = data
+        self.pos = 0
+
+    def tokens(self):
+        while True:
+            tok = self._next()
+            if tok is None:
+                return
+            yield tok
+
+    def _skip_ws(self):
+        d = self.data
+        n = len(d)
+        while self.pos < n:
+            c = d[self.pos]
+            if c in self._WS:
+                self.pos += 1
+            elif c == 0x25:
+                while self.pos < n and d[self.pos] not in b'\r\n':
+                    self.pos += 1
+            else:
+                return
+
+    def _next(self):
+        self._skip_ws()
+        d = self.data
+        if self.pos >= len(d):
+            return None
+        c = d[self.pos]
+        if c == 0x2F:
+            return PName(self._name())
+        if c == 0x28:
+            return self._lit_string()
+        if c == 0x3C:
+            if d[self.pos + 1:self.pos + 2] == b'<':
+                return self._dict()
+            return self._hex_string()
+        if c == 0x5B:
+            self.pos += 1
+            arr = []
+            while True:
+                self._skip_ws()
+                if d[self.pos] == 0x5D:
+                    self.pos += 1
+                    return arr
+                arr.append(self._next())
+        if (0x30 <= c <= 0x39) or c in b'+-.':
+            start = self.pos
+            while self.pos < len(d) and d[self.pos] in b'+-.0123456789':
+                self.pos += 1
+            txt = d[start:self.pos]
+            try:
+                return float(txt) if b'.' in txt else int(txt)
+            except ValueError:
+                return 0
+        start = self.pos
+        while self.pos < len(d) and d[self.pos] not in self._WS and \
+                d[self.pos] not in self._DELIM:
+            self.pos += 1
+        kw = d[start:self.pos].decode('latin-1', 'replace')
+        if kw == 'BI':
+            return self._inline_image()
+        if kw == 'true':
+            return True
+        if kw == 'false':
+            return False
+        if kw == 'null':
+            return None
+        return ('op', kw)
+
+    def _name(self):
+        d = self.data
+        self.pos += 1
+        start = self.pos
+        while self.pos < len(d) and d[self.pos] not in self._WS and \
+                d[self.pos] not in self._DELIM:
+            self.pos += 1
+        return d[start:self.pos].decode('latin-1', 'replace') \
+            .replace('#20', ' ')
+
+    def _lit_string(self):
+        d = self.data
+        self.pos += 1
+        depth = 1
+        out = bytearray()
+        esc = {0x6E: 0x0A, 0x72: 0x0D, 0x74: 0x09, 0x62: 0x08,
+               0x66: 0x0C, 0x28: 0x28, 0x29: 0x29, 0x5C: 0x5C}
+        while self.pos < len(d):
+            c = d[self.pos]
+            if c == 0x5C and self.pos + 1 < len(d):
+                nxt = d[self.pos + 1]
+                if nxt in esc:
+                    out.append(esc[nxt])
+                    self.pos += 2
+                elif 0x30 <= nxt <= 0x37:      # octal: 1-3 digits
+                    j = self.pos + 1
+                    val = 0
+                    while j < len(d) and j < self.pos + 4 and \
+                            0x30 <= d[j] <= 0x37:
+                        val = val * 8 + (d[j] - 0x30)
+                        j += 1
+                    out.append(val & 0xFF)
+                    self.pos = j
+                elif nxt in (0x0D, 0x0A):      # line continuation
+                    self.pos += 2
+                    if nxt == 0x0D and \
+                            d[self.pos:self.pos + 1] == b'\n':
+                        self.pos += 1
+                else:
+                    out.append(nxt)
+                    self.pos += 2
+                continue
+            if c == 0x28:
+                depth += 1
+            elif c == 0x29:
+                depth -= 1
+                if depth == 0:
+                    self.pos += 1
+                    return bytes(out)
+            out.append(c)
+            self.pos += 1
+        return bytes(out)
+
+    def _hex_string(self):
+        d = self.data
+        self.pos += 1
+        out = []
+        while self.pos < len(d) and d[self.pos] != 0x3E:
+            if d[self.pos] not in self._WS:
+                out.append(chr(d[self.pos]))
+            self.pos += 1
+        self.pos += 1
+        txt = ''.join(out)
+        if len(txt) % 2:
+            txt += '0'
+        try:
+            return bytes.fromhex(txt)
+        except ValueError:
+            return b''
+
+    def _dict(self):
+        self.pos += 2
+        d = {}
+        while True:
+            self._skip_ws()
+            if self.data[self.pos:self.pos + 2] == b'>>':
+                self.pos += 2
+                return d
+            key = self._next()
+            val = self._next()
+            if isinstance(key, PName):
+                d[str(key)] = val
+
+    def _inline_image(self):
+        """BI <params> ID <binary> EI -> ('inline', params, data)."""
+        params = {}
+        while True:
+            self._skip_ws()
+            if self.pos >= len(self.data):
+                return ('op', 'BI-bad')
+            tok = self._next()
+            if tok == ('op', 'ID'):
+                break
+            val = self._next()
+            if isinstance(tok, PName):
+                params[str(tok)] = val
+        # one whitespace byte after ID (writers emitting CRLF get both
+        # consumed, like mupdf/pdf.js), then binary data to EI
+        if self.pos < len(self.data) and \
+                self.data[self.pos] in self._WS:
+            crlf = self.data[self.pos] == 0x0D and \
+                self.data[self.pos + 1:self.pos + 2] == b'\n'
+            self.pos += 2 if crlf else 1
+        pos = self.pos
+        while True:
+            e = self.data.find(b'EI', pos)
+            if e < 0:
+                data = self.data[self.pos:]
+                self.pos = len(self.data)
+                return ('inline', params, data)
+            after = self.data[e + 2:e + 3]
+            before = self.data[e - 1:e]
+            if (not after or after[0] in self._WS) and \
+                    (before and before[0] in self._WS):
+                data = self.data[self.pos:e - 1]
+                self.pos = e + 2
+                return ('inline', params, data)
+            pos = e + 2
+
+
+# standard-14 base fonts -> Adobe core AFM files shipped by matplotlib;
+# PDFs may reference these without /Widths (ISO 32000-1 9.6.2.2 allows
+# omitting metrics for the standard 14), so a conforming reader needs
+# the real advance widths, not a flat default
+_STD14_AFM = {
+    'helvetica': 'phvr8a', 'helvetica-bold': 'phvb8a',
+    'helvetica-oblique': 'phvro8a', 'helvetica-boldoblique': 'phvbo8a',
+    'courier': 'pcrr8a', 'courier-bold': 'pcrb8a',
+    'courier-oblique': 'pcrro8a', 'courier-boldoblique': 'pcrbo8a',
+    'times-roman': 'ptmr8a', 'times-bold': 'ptmb8a',
+    'times-italic': 'ptmri8a', 'times-bolditalic': 'ptmbi8a',
+    'symbol': 'psyr', 'zapfdingbats': 'pzdr',
+    # common aliases
+    'arial': 'phvr8a', 'arial-bold': 'phvb8a',
+    'arialmt': 'phvr8a', 'arial-boldmt': 'phvb8a',
+    'timesnewroman': 'ptmr8a', 'timesnewromanpsmt': 'ptmr8a',
+    'couriernew': 'pcrr8a',
+}
+_AFM_CACHE = {}
+
+
+def _load_afm(key):
+    afm = _AFM_CACHE.get(key)
+    if afm is None and key not in _AFM_CACHE:
+        try:
+            import os
+            import matplotlib
+            try:
+                from matplotlib import _afm as afm_mod
+            except ImportError:               # older matplotlib
+                from matplotlib import afm as afm_mod
+            path = os.path.join(matplotlib.get_data_path(), 'fonts',
+                                'afm', key + '.afm')
+            with open(path, 'rb') as fp:
+                afm = afm_mod.AFM(fp)
+        except Exception:
+            afm = None
+        _AFM_CACHE[key] = afm
+    return afm
+
+
+def _std14_widths(reader, font):
+    """code -> advance/1000 for a /Widths-less simple font from the
+    matching core AFM (empty dict when the base font is unknown)."""
+    base = str(reader.resolve(font.get('BaseFont')) or '')
+    base = base.split('+')[-1].lower()
+    key = _STD14_AFM.get(base)
+    if key is None:
+        return {}
+    afm = _load_afm(key)
+    if afm is None:
+        return {}
+    by_name = getattr(afm, '_metrics_by_name', {})
+    by_code = getattr(afm, '_metrics', {})
+
+    # /Encoding Differences override; otherwise Symbol/ZapfDingbats use
+    # their built-in encoding (the AFM's own C codes), text fonts the
+    # cp1252-compatible default
+    from .glyphs import parse_differences
+    try:
+        enc = reader.resolve(font.get('Encoding'))
+    except Exception:
+        enc = None
+    diffs = parse_differences(reader.resolve, enc)
+
+    from .glyphs import _uv_names
+    wmap = {}
+    builtin = key in ('psyr', 'pzdr')
+    for code in range(256):
+        name = diffs.get(code)
+        m = by_name.get(name) if name else None
+        if m is None and name is None:
+            if builtin:
+                m = by_code.get(code)
+            else:
+                try:
+                    uv = ord(bytes([code]).decode('cp1252'))
+                except (UnicodeDecodeError, ValueError):
+                    uv = None
+                if uv is not None:
+                    for cand in _uv_names(uv):
+                        m = by_name.get(cand)
+                        if m is not None:
+                            break
+        if m is not None:
+            wmap[code] = float(m.width) / 1000.0
+    return wmap
+
+
+class Rasterizer:
+    def __init__(self, reader):
+        self.reader = reader
+        self._record = None
+        self._text_record = None   # glyph sink for pdf/textextract.py
+        self._text_run = 0         # increments per shown string
+        self._glyph_sources = {}
+        self._font_metrics_cache = {}
+        self._in_smask = False     # nested-SMask recursion guard
+
+    def _glyph_source(self, font):
+        """Per-document GlyphSource cache (font dicts are cached by the
+        reader, so id() stays stable while we hold the source)."""
+        if not isinstance(font, dict):
+            return None
+        key = id(font)
+        src = self._glyph_sources.get(key)
+        if src is None:
+            try:
+                from .glyphs import GlyphSource
+                src = GlyphSource(self.reader, font)
+            except Exception:
+                src = False
+            self._glyph_sources[key] = src
+        return src or None
+
+    # ---- public API ----------------------------------------------------
+
+    def render_page(self, idx, scale=1.0, skip_images=False,
+                    background=255):
+        """Render page ``idx`` to an (H, W, 3) uint8 RGB array.  One
+        device pixel per ``scale`` PDF units.  ``skip_images=True``
+        paints everything except image XObjects — the reference's
+        colour-mode probe (bin/pdf-metadata-json:61-76)."""
+        r = self.reader
+        page = r.pages()[idx]
+        box = r._inherited(page, 'MediaBox') or [0, 0, 612, 792]
+        box = [float(r.resolve(v)) for v in box]
+        pw, ph = box[2] - box[0], box[3] - box[1]
+        W = max(1, int(round(pw * scale)))
+        H = max(1, int(round(ph * scale)))
+        canvas = np.full((H, W, 3), background, np.float32)
+        gs = _GState()
+        # PDF user space -> device: scale, flip y, origin at box corner
+        gs.ctm = (scale, 0.0, 0.0, -scale,
+                  -box[0] * scale, box[3] * scale)
+        self.skip_images = skip_images
+        res = r._inherited(page, 'Resources') or {}
+        content = r.page_contents(idx)
+        self._execute(content, res, canvas, gs, depth=0)
+        return np.clip(canvas, 0, 255).astype(np.uint8)
+
+    # ---- interpreter ---------------------------------------------------
+
+    def _execute(self, content, resources, canvas, gs, depth):
+        if depth > 8:
+            return
+        r = self.reader
+        H, W = canvas.shape[:2]
+        stack = []
+        gstack = []
+        path = []            # list of subpaths (lists of (x, y) device)
+        cur = []
+        start_pt = None
+        pending_clip = None
+        pt = (0.0, 0.0)      # current point, user space
+        tm = tlm = _ID
+
+        fonts = r.resolve(resources.get('Font')) or {}
+        xobjs = r.resolve(resources.get('XObject')) or {}
+
+        def flush_path(fill_rule=None, stroke=False):
+            nonlocal path, cur, pending_clip
+            if cur:
+                path.append(cur)
+            polys = [p for p in path if len(p) >= 2]
+            if fill_rule is not None and polys:
+                self._fill(canvas, polys, gs, fill_rule)
+            if stroke and polys:
+                self._stroke(canvas, path, gs)
+            if pending_clip is not None and polys:
+                mask = self._poly_mask((H, W), polys, pending_clip)
+                gs.clip = mask if gs.clip is None else (gs.clip & mask)
+            pending_clip = None
+            path = []
+            cur = []
+
+        def dev(x, y):
+            return _mat_apply(gs.ctm, x, y)
+
+        for tok in _ContentLexer(content).tokens():
+            if isinstance(tok, tuple) and len(tok) == 3 and \
+                    tok[0] == 'inline':
+                if not self.skip_images:
+                    try:
+                        self._draw_inline_image(canvas, gs, tok[1],
+                                                tok[2], resources)
+                    except Exception:
+                        pass
+                stack = []
+                continue
+            if not (isinstance(tok, tuple) and len(tok) == 2 and
+                    tok[0] == 'op'):
+                stack.append(tok)
+                continue
+            op = tok[1]
+            try:
+                if op == 'q':
+                    gstack.append(gs.copy())
+                elif op == 'Q':
+                    if gstack:
+                        gs = gstack.pop()
+                elif op == 'cm':
+                    m = tuple(float(v) for v in stack[-6:])
+                    gs.ctm = _mat_mul(m, gs.ctm)
+                elif op == 'w':
+                    gs.lw = float(stack[-1])
+                elif op in ('J', 'j', 'M', 'd', 'ri', 'i'):
+                    pass
+                elif op == 'gs':
+                    self._set_extgstate(gs, resources, stack[-1],
+                                        (H, W))
+                # ---- path construction ----
+                elif op == 'm':
+                    if cur:
+                        path.append(cur)
+                    pt = (float(stack[-2]), float(stack[-1]))
+                    cur = [dev(*pt)]
+                    start_pt = pt
+                elif op == 'l':
+                    pt = (float(stack[-2]), float(stack[-1]))
+                    cur.append(dev(*pt))
+                elif op in ('c', 'v', 'y'):
+                    coords = [float(v) for v in stack[-{'c': 6, 'v': 4,
+                                                        'y': 4}[op]:]]
+                    if op == 'c':
+                        p1 = (coords[0], coords[1])
+                        p2 = (coords[2], coords[3])
+                        p3 = (coords[4], coords[5])
+                    elif op == 'v':
+                        p1 = pt
+                        p2 = (coords[0], coords[1])
+                        p3 = (coords[2], coords[3])
+                    else:
+                        p1 = (coords[0], coords[1])
+                        p2 = p3 = (coords[2], coords[3])
+                    cur.extend(self._bezier(pt, p1, p2, p3, gs.ctm))
+                    pt = p3
+                elif op == 'h':
+                    if start_pt is not None and cur:
+                        cur.append(dev(*start_pt))
+                        pt = start_pt
+                elif op == 're':
+                    x, y, w_, h_ = (float(v) for v in stack[-4:])
+                    if cur:
+                        path.append(cur)
+                    cur = [dev(x, y), dev(x + w_, y),
+                           dev(x + w_, y + h_), dev(x, y + h_),
+                           dev(x, y)]
+                    path.append(cur)
+                    cur = []
+                    pt = (x, y)
+                    start_pt = pt
+                # ---- painting ----
+                elif op in ('f', 'F', 'b', 'B'):
+                    flush_path(fill_rule='nonzero',
+                               stroke=op in ('b', 'B'))
+                elif op in ('f*', 'b*', 'B*'):
+                    flush_path(fill_rule='evenodd',
+                               stroke=op in ('b*', 'B*'))
+                elif op in ('S', 's'):
+                    flush_path(stroke=True)
+                elif op == 'n':
+                    flush_path()
+                elif op == 'W':
+                    pending_clip = 'nonzero'
+                elif op == 'W*':
+                    pending_clip = 'evenodd'
+                # ---- colour ----
+                elif op == 'g':
+                    v = float(stack[-1])
+                    gs.fill = (v, v, v)
+                elif op == 'G':
+                    v = float(stack[-1])
+                    gs.stroke = (v, v, v)
+                elif op == 'rg':
+                    gs.fill = tuple(float(v) for v in stack[-3:])
+                elif op == 'RG':
+                    gs.stroke = tuple(float(v) for v in stack[-3:])
+                elif op == 'k':
+                    gs.fill = _cmyk_to_rgb(*(float(v)
+                                             for v in stack[-4:]))
+                elif op == 'K':
+                    gs.stroke = _cmyk_to_rgb(*(float(v)
+                                               for v in stack[-4:]))
+                elif op in ('cs', 'CS'):
+                    n = self._cs_components(resources, stack[-1])
+                    if op == 'cs':
+                        gs.fill_n = n
+                        gs.fill = (0.0, 0.0, 0.0)
+                    else:
+                        gs.stroke_n = n
+                        gs.stroke = (0.0, 0.0, 0.0)
+                elif op in ('sc', 'scn', 'SC', 'SCN'):
+                    nums = [float(v) for v in stack
+                            if isinstance(v, (int, float))]
+                    col = None
+                    if len(nums) >= 3:
+                        col = tuple(nums[-3:]) if len(nums) == 3 else \
+                            _cmyk_to_rgb(*nums[-4:])
+                    elif len(nums) == 1:
+                        col = (nums[0],) * 3
+                    else:
+                        col = (0.5, 0.5, 0.5)   # pattern
+                    if op in ('sc', 'scn'):
+                        gs.fill = col
+                    else:
+                        gs.stroke = col
+                elif op == 'sh':
+                    self._draw_shading(canvas, gs, resources,
+                                       stack[-1] if stack else None)
+                # ---- text ----
+                elif op == 'BT':
+                    tm = tlm = _ID
+                elif op == 'ET':
+                    pass
+                elif op == 'Tf':
+                    gs.fsize = float(stack[-1])
+                    fname = stack[-2]
+                    gs.font = r.resolve(fonts.get(str(fname)))
+                elif op == 'Td':
+                    tlm = _mat_mul(
+                        (1, 0, 0, 1, float(stack[-2]),
+                         float(stack[-1])), tlm)
+                    tm = tlm
+                elif op == 'TD':
+                    gs.leading = -float(stack[-1])
+                    tlm = _mat_mul(
+                        (1, 0, 0, 1, float(stack[-2]),
+                         float(stack[-1])), tlm)
+                    tm = tlm
+                elif op == 'Tm':
+                    tm = tlm = tuple(float(v) for v in stack[-6:])
+                elif op == 'T*':
+                    tlm = _mat_mul((1, 0, 0, 1, 0, -gs.leading), tlm)
+                    tm = tlm
+                elif op == 'TL':
+                    gs.leading = float(stack[-1])
+                elif op == 'Tc':
+                    gs.char_spc = float(stack[-1])
+                elif op == 'Tw':
+                    gs.word_spc = float(stack[-1])
+                elif op == 'Tz':
+                    gs.hscale = float(stack[-1]) / 100.0
+                elif op == 'Ts':
+                    gs.rise = float(stack[-1])
+                elif op == 'Tr':
+                    gs.render_mode = int(stack[-1])
+                elif op == 'Tj':
+                    tm = self._show_text(canvas, gs, tm, stack[-1],
+                                         resources, depth)
+                elif op == "'":
+                    tlm = _mat_mul((1, 0, 0, 1, 0, -gs.leading), tlm)
+                    tm = self._show_text(canvas, gs, tlm, stack[-1],
+                                         resources, depth)
+                elif op == '"':
+                    gs.word_spc = float(stack[-3])
+                    gs.char_spc = float(stack[-2])
+                    tlm = _mat_mul((1, 0, 0, 1, 0, -gs.leading), tlm)
+                    tm = self._show_text(canvas, gs, tlm, stack[-1],
+                                         resources, depth)
+                elif op == 'TJ':
+                    arr = stack[-1] if stack and \
+                        isinstance(stack[-1], list) else []
+                    for el in arr:
+                        if isinstance(el, bytes):
+                            tm = self._show_text(canvas, gs, tm, el,
+                                                 resources, depth)
+                        elif isinstance(el, (int, float)):
+                            # vertical writing: the offset shifts ty
+                            # and is NOT scaled by Tz (9.4.4)
+                            m = self._font_metrics(gs.font)
+                            if m[3] == 1 and m[2] == 2:
+                                dy = -el / 1000.0 * gs.fsize
+                                tm = _mat_mul((1, 0, 0, 1, 0, dy), tm)
+                            else:
+                                dx = -el / 1000.0 * gs.fsize * \
+                                    gs.hscale
+                                tm = _mat_mul((1, 0, 0, 1, dx, 0), tm)
+                # ---- XObjects ----
+                elif op == 'Do':
+                    name = str(stack[-1]) if stack else ''
+                    xo = r.resolve(xobjs.get(name))
+                    if isinstance(xo, PStream):
+                        sub = str(r.resolve(xo.dict.get('Subtype')))
+                        if sub == 'Image':
+                            if self._record is not None:
+                                ref = xobjs.get(name)
+                                num = getattr(ref, 'num', None)
+                                self._record.append(
+                                    (name, gs.ctm, num, xo))
+                            if not self.skip_images:
+                                self._draw_image(canvas, gs, xo)
+                        elif sub == 'Form':
+                            sub_gs = gs.copy()
+                            mtx = r.resolve(xo.dict.get('Matrix'))
+                            if mtx:
+                                sub_gs.ctm = _mat_mul(
+                                    tuple(float(r.resolve(v))
+                                          for v in mtx), gs.ctm)
+                            sub_res = r.resolve(
+                                xo.dict.get('Resources')) or resources
+                            self._execute(xo.decoded(), sub_res,
+                                          canvas, sub_gs, depth + 1)
+                elif op in ('BDC', 'BMC', 'EMC', 'MP', 'DP', 'BX',
+                            'EX', 'd0', 'd1', 'BI-bad'):
+                    pass
+            except (ValueError, TypeError, IndexError, KeyError):
+                pass   # tolerate malformed operands like real viewers
+            stack = []
+
+    # ---- primitives ----------------------------------------------------
+
+    def _bezier(self, p0, p1, p2, p3, ctm, n=16):
+        ts = np.linspace(0, 1, n + 1)[1:]
+        pts = []
+        for t in ts:
+            mt = 1 - t
+            x = (mt ** 3 * p0[0] + 3 * mt * mt * t * p1[0] +
+                 3 * mt * t * t * p2[0] + t ** 3 * p3[0])
+            y = (mt ** 3 * p0[1] + 3 * mt * mt * t * p1[1] +
+                 3 * mt * t * t * p2[1] + t ** 3 * p3[1])
+            pts.append(_mat_apply(ctm, x, y))
+        return pts
+
+    def _poly_mask(self, shape, polys, rule):
+        H, W = shape
+        mask = np.zeros((H, W), bool)
+        edges = []
+        for poly in polys:
+            n = len(poly)
+            for i in range(n):
+                x0, y0 = poly[i]
+                x1, y1 = poly[(i + 1) % n]
+                if y0 != y1:
+                    edges.append((y0, y1, x0, x1))
+        if not edges:
+            return mask
+        ymin = max(0, int(min(min(e[0], e[1]) for e in edges)))
+        ymax = min(H - 1, int(max(max(e[0], e[1]) for e in edges)) + 1)
+        for yi in range(ymin, ymax + 1):
+            yc = yi + 0.5
+            xs = []
+            for (y0, y1, x0, x1) in edges:
+                if (y0 <= yc < y1) or (y1 <= yc < y0):
+                    t = (yc - y0) / (y1 - y0)
+                    xs.append((x0 + t * (x1 - x0),
+                               1 if y1 > y0 else -1))
+            if not xs:
+                continue
+            xs.sort()
+            if rule == 'evenodd':
+                for i in range(0, len(xs) - 1, 2):
+                    a = max(0, int(np.ceil(xs[i][0] - 0.5)))
+                    b = min(W, int(np.ceil(xs[i + 1][0] - 0.5)))
+                    if a < b:
+                        mask[yi, a:b] = True
+            else:
+                wind = 0
+                for i in range(len(xs) - 1):
+                    wind += xs[i][1]
+                    if wind != 0:
+                        a = max(0, int(np.ceil(xs[i][0] - 0.5)))
+                        b = min(W, int(np.ceil(xs[i + 1][0] - 0.5)))
+                        if a < b:
+                            mask[yi, a:b] = True
+        return mask
+
+    def _write(self, region, sel, src, gs, stroking=False, alpha=None,
+               org=(0, 0)):
+        """Every painted pixel funnels through here.  Applies the
+        ExtGState constant alpha (ca/CA), soft mask (SMask), separable
+        + non-separable blend modes (BM) and transfer functions
+        (TR/TR2) to ``src`` before storing.  src: (3,) colour or
+        region-shaped (h, w, 3) array, float 0..255; sel: bool mask
+        over region; alpha: optional per-pixel (h, w) float in [0,1]
+        (image SMask); org: region's (y, x) page offset, used to slice
+        the page-sized ExtGState soft mask."""
+        a = gs.stroke_a if stroking else gs.fill_a
+        if gs.tr is None and gs.blend == 'Normal' and a >= 1.0 \
+                and alpha is None and gs.smask is None:
+            region[sel] = src if np.ndim(src) == 1 else src[sel]
+            return
+        if not np.count_nonzero(sel):
+            return
+        if gs.smask is not None:
+            y0, x0 = org
+            h, w = region.shape[:2]
+            smr = gs.smask[y0:y0 + h, x0:x0 + w]
+            alpha = smr if alpha is None else alpha * smr
+        cs = np.asarray(src, np.float32) / 255.0
+        cs = np.broadcast_to(cs, region.shape)[sel] if cs.ndim == 1 \
+            else cs[sel]
+        if gs.tr is not None:
+            cs = self._apply_transfer(cs, gs.tr)
+        cb = region[sel] / 255.0
+        out = np.clip(_blend_arr(cb, cs, gs.blend), 0.0, 1.0)
+        aeff = a if alpha is None else (a * alpha[sel])[..., None]
+        out = cb * (1.0 - aeff) + out * aeff
+        region[sel] = np.clip(out, 0.0, 1.0) * 255.0
+
+    def _apply_transfer(self, cs, tr):
+        """cs: (n, 3) in [0,1].  tr: one 1-in/1-out function applied to
+        every component, or a tuple of per-component functions (None =
+        Identity).  Transfer maps the source's device values at paint
+        time — the continuous-tone interpretation; halftone screens
+        (/HT) stay identity by design, like any RGB preview renderer."""
+        fns = tr if isinstance(tr, tuple) else (tr, tr, tr)
+        out = cs.copy()
+        for k in range(3):
+            f = fns[k] if k < len(fns) else None
+            if f is None:
+                continue
+            vals = self._eval_function(f, out[:, k].astype(np.float64))
+            if vals is not None and vals.shape[-1] >= 1:
+                out[:, k] = np.clip(vals[:, 0], 0.0, 1.0)
+        return out
+
+    def _set_extgstate(self, gs, resources, name, shape):
+        r = self.reader
+        egs = r.resolve((r.resolve(resources.get('ExtGState'))
+                         or {}).get(str(name)))
+        if not isinstance(egs, dict):
+            return
+        if 'LW' in egs:
+            gs.lw = float(r.resolve(egs['LW']))
+        if 'CA' in egs:
+            gs.stroke_a = float(r.resolve(egs['CA']))
+        if 'ca' in egs:
+            gs.fill_a = float(r.resolve(egs['ca']))
+        if 'BM' in egs:
+            bm = r.resolve(egs['BM'])
+            if isinstance(bm, list):
+                bm = r.resolve(bm[0]) if bm else 'Normal'
+            gs.blend = 'Normal' if str(bm) == 'Compatible' else str(bm)
+        for key in ('TR2', 'TR'):
+            if key not in egs:
+                continue
+            tr = r.resolve(egs[key])
+            if isinstance(tr, list):
+                fns = tuple(None if str(r.resolve(f)) in
+                            ('Identity', 'Default') else r.resolve(f)
+                            for f in tr[:3])
+                gs.tr = None if all(f is None for f in fns) else fns
+            elif str(tr) in ('Identity', 'Default'):
+                gs.tr = None
+            else:
+                gs.tr = tr
+            break            # TR2 wins over TR when both present
+        if 'SMask' in egs:
+            sm = r.resolve(egs['SMask'])
+            if not isinstance(sm, dict):          # /None
+                gs.smask = None
+            elif not getattr(self, '_in_smask', False):
+                try:
+                    gs.smask = self._render_soft_mask(gs, sm, shape)
+                except Exception:
+                    gs.smask = None
+        # /HT (halftone screens) stays identity by design:
+        # continuous-tone preview rendering
+
+    def _render_soft_mask(self, gs, sm, shape):
+        """Render an ExtGState soft-mask group (ISO 32000-1 11.6.5) to
+        a page-sized alpha array, fixed in device space at gs-set time.
+        Luminosity: composite the group over its backdrop (BC, default
+        black) and take the luminosity.  Alpha: recover per-pixel alpha
+        from two composites (over black and over white: a = 1-(Cw-Cb)),
+        exact for the painted-opaque case this renderer produces."""
+        r = self.reader
+        g = r.resolve(sm.get('G'))
+        if not isinstance(g, PStream):
+            return None
+        stype = str(r.resolve(sm.get('S')) or 'Alpha')
+        H, W = shape
+        sub_gs = _GState()
+        sub_gs.ctm = gs.ctm
+        mtx = r.resolve(g.dict.get('Matrix'))
+        if mtx:
+            sub_gs.ctm = _mat_mul(tuple(float(r.resolve(v))
+                                        for v in mtx), gs.ctm)
+        bbox = [float(r.resolve(v))
+                for v in (r.resolve(g.dict.get('BBox')) or [])]
+        if len(bbox) == 4:
+            quad = [_mat_apply(sub_gs.ctm, x, y)
+                    for (x, y) in ((bbox[0], bbox[1]), (bbox[2], bbox[1]),
+                                   (bbox[2], bbox[3]), (bbox[0], bbox[3]))]
+            sub_gs.clip = self._poly_mask((H, W), [quad], 'nonzero')
+        res = r.resolve(g.dict.get('Resources')) or {}
+        content = g.decoded()
+        self._in_smask = True
+        try:
+            if stype == 'Luminosity':
+                bc = [float(r.resolve(v))
+                      for v in (r.resolve(sm.get('BC')) or [])]
+                bg = float(bc[0]) * 255.0 if bc else 0.0
+                mcanvas = np.full((H, W, 3), bg, np.float32)
+                self._execute(content, res, mcanvas, sub_gs.copy(),
+                              depth=1)
+                mask = _lum(np.clip(mcanvas, 0, 255) / 255.0)
+            else:
+                cb_ = np.zeros((H, W, 3), np.float32)
+                cw_ = np.full((H, W, 3), 255.0, np.float32)
+                self._execute(content, res, cb_, sub_gs.copy(), depth=1)
+                self._execute(content, res, cw_, sub_gs.copy(), depth=1)
+                mask = 1.0 - _lum(np.clip(cw_ - cb_, 0, 255) / 255.0)
+        finally:
+            self._in_smask = False
+        tr = r.resolve(sm.get('TR'))
+        if tr is not None and not (isinstance(tr, PName)
+                                   and str(tr) == 'Identity'):
+            vals = self._eval_function(tr, mask.ravel().astype(np.float64))
+            if vals is not None and vals.shape[-1] >= 1:
+                mask = np.clip(vals[:, 0], 0, 1).reshape(H, W)
+        return mask.astype(np.float32)
+
+    def _fill(self, canvas, polys, gs, rule, colour=None,
+              stroking=False):
+        """Bbox-localized scanline fill (full-page masks per glyph/path
+        would dominate at print resolutions)."""
+        H, W = canvas.shape[:2]
+        arrs = [np.asarray(p, np.float64).reshape(-1, 2) for p in polys]
+        arrs = [p for p in arrs if len(p) >= 2]
+        if not arrs:
+            return
+        x0 = max(0, int(np.floor(min(p[:, 0].min() for p in arrs))))
+        x1 = min(W, int(np.ceil(max(p[:, 0].max() for p in arrs))) + 1)
+        y0 = max(0, int(np.floor(min(p[:, 1].min() for p in arrs))))
+        y1 = min(H, int(np.ceil(max(p[:, 1].max() for p in arrs))) + 1)
+        if x0 >= x1 or y0 >= y1:
+            return
+        shifted = [p - (x0, y0) for p in arrs]
+        mask = self._poly_mask((y1 - y0, x1 - x0), shifted, rule)
+        if gs.clip is not None:
+            mask &= gs.clip[y0:y1, x0:x1]
+        col = np.array(colour if colour is not None else gs.fill,
+                       np.float32) * 255.0
+        self._write(canvas[y0:y1, x0:x1], mask, col, gs,
+                    stroking=stroking, org=(y0, x0))
+
+    def _fill_clip(self, canvas, gs, colour):
+        col = np.array(colour, np.float32) * 255.0
+        sel = gs.clip if gs.clip is not None \
+            else np.ones(canvas.shape[:2], bool)
+        self._write(canvas, sel, col, gs)
+
+    def _stroke(self, canvas, path, gs):
+        # device-space line width (geometric mean of the axis scales)
+        a, b, c, d, _, _ = gs.ctm
+        sx = (a * a + b * b) ** 0.5
+        sy = (c * c + d * d) ** 0.5
+        lw = max(1.0, gs.lw * (sx * sy) ** 0.5)
+        half = lw / 2.0
+        quads = []
+        for poly in path:
+            for i in range(len(poly) - 1):
+                x0, y0 = poly[i]
+                x1, y1 = poly[i + 1]
+                dx, dy = x1 - x0, y1 - y0
+                ln = (dx * dx + dy * dy) ** 0.5
+                if ln < 1e-9:
+                    continue
+                nx, ny = -dy / ln * half, dx / ln * half
+                quads.append([(x0 + nx, y0 + ny), (x1 + nx, y1 + ny),
+                              (x1 - nx, y1 - ny), (x0 - nx, y0 - ny)])
+        if not quads:
+            return
+        self._fill(canvas, quads, gs, 'nonzero', colour=gs.stroke,
+                   stroking=True)
+
+    # ---- text ----------------------------------------------------------
+
+    def _font_metrics(self, font):
+        """(widths dict code->w/1000, default w/1000, bytes per code,
+        wmode, w2map cid->(w1, vx, vy) in em, (vy, w1) defaults).
+
+        wmode 1 = vertical writing (ISO 32000-1 9.7.4.3): Identity-V or
+        an embedded CMap whose dict (or content) carries /WMode 1.  /W2
+        supplies per-CID vertical displacement w1 and position vector v
+        (vertical origin = horizontal origin + v); /DW2 [880 -1000] is
+        the default (v_y, w1), with v_x defaulting to w0/2.  The
+        reference gets all of this from PyMuPDF's MuPDF text engine."""
+        key = id(font)
+        cached = self._font_metrics_cache.get(key)
+        if cached is not None:
+            return cached
+        r = self.reader
+        if not isinstance(font, dict):
+            return {}, 0.5, 1, 0, {}, (0.88, -1.0)
+        sub = str(r.resolve(font.get('Subtype')))
+        if sub == 'Type0':
+            wmode = 0
+            try:
+                enc = r.resolve(font.get('Encoding'))
+                if isinstance(enc, PStream):
+                    wm = r.resolve(enc.dict.get('WMode'))
+                    if wm is None:
+                        m = re.search(rb'/WMode\s+(\d+)', enc.decoded())
+                        wm = int(m.group(1)) if m else 0
+                    wmode = 1 if int(wm or 0) == 1 else 0
+                elif enc is not None and str(enc).endswith('-V'):
+                    wmode = 1
+            except Exception:
+                wmode = 0
+            desc = r.resolve(font.get('DescendantFonts'))
+            dw = 1.0          # spec default DW = 1000 (9.7.4.3)
+            wmap = {}
+            w2map = {}
+            dw2 = (0.88, -1.0)
+            if desc:
+                cid = r.resolve(desc[0])
+                dw = float(r.resolve(cid.get('DW', 1000))) / 1000.0
+                # /W: [c [w...] | cFirst cLast w], keyed by CID
+                warr = r.resolve(cid.get('W'))
+                if isinstance(warr, list):
+                    i = 0
+                    while i < len(warr) - 1:
+                        c = int(r.resolve(warr[i]))
+                        nxt = r.resolve(warr[i + 1])
+                        if isinstance(nxt, list):
+                            for j, wv in enumerate(nxt):
+                                wmap[c + j] = \
+                                    float(r.resolve(wv)) / 1000.0
+                            i += 2
+                        elif i + 2 < len(warr):
+                            c2 = min(int(nxt), c + 65535)
+                            wv = float(r.resolve(warr[i + 2])) / 1000.0
+                            for cc in range(c, c2 + 1):
+                                wmap[cc] = wv
+                            i += 3
+                        else:
+                            break
+                if wmode:
+                    d2 = r.resolve(cid.get('DW2'))
+                    if isinstance(d2, list) and len(d2) >= 2:
+                        try:
+                            dw2 = (float(r.resolve(d2[0])) / 1000.0,
+                                   float(r.resolve(d2[1])) / 1000.0)
+                        except (TypeError, ValueError):
+                            pass
+                    # /W2: [c [w1 vx vy ...] | cFirst cLast w1 vx vy]
+                    w2arr = r.resolve(cid.get('W2'))
+                    if isinstance(w2arr, list):
+                        i = 0
+                        while i < len(w2arr) - 1:
+                            c = int(r.resolve(w2arr[i]))
+                            nxt = r.resolve(w2arr[i + 1])
+                            if isinstance(nxt, list):
+                                vals = [float(r.resolve(v)) / 1000.0
+                                        for v in nxt]
+                                for j in range(0, len(vals) - 2, 3):
+                                    w2map[c + j // 3] = (
+                                        vals[j], vals[j + 1],
+                                        vals[j + 2])
+                                i += 2
+                            elif i + 4 < len(w2arr):
+                                c2 = min(int(nxt), c + 65535)
+                                trip = tuple(
+                                    float(r.resolve(w2arr[i + 2 + k]))
+                                    / 1000.0 for k in range(3))
+                                for cc in range(c, c2 + 1):
+                                    w2map[cc] = trip
+                                i += 5
+                            else:
+                                break
+            res = (wmap, dw, 2, wmode, w2map, dw2)
+            self._font_metrics_cache[key] = res
+            return res
+        first = r.resolve(font.get('FirstChar'))
+        widths = r.resolve(font.get('Widths'))
+        wmap = {}
+        if isinstance(first, int) and isinstance(widths, list):
+            for i, wv in enumerate(widths):
+                try:
+                    wmap[first + i] = float(r.resolve(wv)) / 1000.0
+                except (TypeError, ValueError):
+                    pass
+        if not wmap:
+            wmap = _std14_widths(r, font)
+        res = (wmap, 0.5, 1, 0, {}, (0.88, -1.0))
+        self._font_metrics_cache[key] = res
+        return res
+
+    def _show_text(self, canvas, gs, tm, text, resources=None, depth=0):
+        if not isinstance(text, bytes):
+            return tm
+        src = self._glyph_source(gs.font)
+        if src is not None and src.type3:
+            return self._show_type3(canvas, gs, tm, text, resources,
+                                    depth)
+        wmap, dw, nbytes, wmode, w2map, dw2 = \
+            self._font_metrics(gs.font)
+        vertical = wmode == 1 and nbytes == 2
+        codes = []
+        if nbytes == 2:
+            for i in range(0, len(text) - 1, 2):
+                codes.append((text[i] << 8) | text[i + 1])
+        else:
+            codes = list(text)
+        fs = gs.fsize
+        paint = gs.render_mode not in (3, 7)
+        stroke_only = gs.render_mode in (1, 5)
+        rec = self._text_record
+        if rec is not None:
+            self._text_run += 1
+        for code in codes:
+            # outlines are only built when actually needed (painting,
+            # or a width fallback): the glyph-sink path with /Widths
+            # present never parses the font program
+            glyph = None
+            # /W and /Widths are keyed by CID, not code
+            wkey = code
+            if src is not None and src.kind is not None and src.is_cid \
+                    and src.cmap_singles is not None:
+                wkey = src._resolve_cid(code)
+            w0 = wmap.get(wkey)
+            if w0 is None:
+                glyph = src.outline(code) if src is not None else None
+                w0 = glyph[1] if glyph is not None else dw
+            # Tw applies only to SINGLE-byte code 32 (ISO 32000-1
+            # 9.3.3); 2-byte 0x0020 in a Type0 string gets none
+            wsp = gs.word_spc if (code == 32 and nbytes == 1) else 0.0
+            if vertical:
+                # 9.4.4: ty = w1*Tfs + Tc + Tw, unscaled by Tz; the
+                # glyph is drawn displaced by -v from the vertical
+                # origin (v defaults to (w0/2, DW2[0]/1000))
+                w1, vx, vy = w2map.get(
+                    wkey, (dw2[1], w0 * 0.5, dw2[0]))
+                adv = w1 * fs + gs.char_spc + wsp
+                gx = -vx * fs * gs.hscale
+                gy = gs.rise - vy * fs
+            else:
+                adv = (w0 * fs + gs.char_spc + wsp) * gs.hscale
+                gx, gy = 0.0, gs.rise
+            if rec is not None:
+                # glyph sink (pdf/textextract.py): metric quad in device
+                # space, no painting.  (font, code, nbytes, run, origin,
+                # advance-end, ascent corner, descent corner, fs)
+                trm = _mat_mul(tm, gs.ctm)
+                if vertical:
+                    end = _mat_apply(trm, 0, gs.rise + w1 * fs)
+                else:
+                    end = _mat_apply(trm, w0 * fs * gs.hscale, gs.rise)
+                rec.append((
+                    gs.font, code, nbytes, self._text_run,
+                    _mat_apply(trm, 0, gs.rise), end,
+                    _mat_apply(trm, gx, gy + 0.72 * fs),
+                    _mat_apply(trm, gx, gy - 0.18 * fs),
+                    fs))
+                tm = _mat_mul((1, 0, 0, 1, 0, adv) if vertical
+                              else (1, 0, 0, 1, adv, 0), tm)
+                continue
+            if paint and glyph is None and src is not None:
+                glyph = src.outline(code)
+            if paint and glyph is not None and glyph[0]:
+                paths, _adv = glyph
+                trm = _mat_mul(tm, gs.ctm)
+                a, b, c, d, e, f = _mat_mul(
+                    (fs * gs.hscale, 0, 0, fs, gx, gy), trm)
+                polys = [np.stack(
+                    (a * p[:, 0] + c * p[:, 1] + e,
+                     b * p[:, 0] + d * p[:, 1] + f), axis=-1)
+                    for p in paths]
+                col = gs.stroke if stroke_only else gs.fill
+                self._fill(canvas, polys, gs, 'nonzero', colour=col)
+            elif paint and code != 32:
+                # unresolvable glyph OR a contour-less one (our own
+                # glyphless text layer): round-1 metric box in text
+                # space (0, -0.2 em)..(adv, 0.75 em) — keeps visible-Tr
+                # coverage meaningful for the colour-mode/debug probes
+                # where a real viewer would show blank
+                trm = _mat_mul(tm, gs.ctm)
+                corners = [
+                    _mat_apply(trm, gx, gy - 0.18 * fs),
+                    _mat_apply(trm, gx + w0 * fs * gs.hscale,
+                               gy - 0.18 * fs),
+                    _mat_apply(trm, gx + w0 * fs * gs.hscale,
+                               gy + 0.72 * fs),
+                    _mat_apply(trm, gx, gy + 0.72 * fs),
+                ]
+                self._fill(canvas, [corners], gs, 'nonzero')
+            tm = _mat_mul((1, 0, 0, 1, 0, adv) if vertical
+                          else (1, 0, 0, 1, adv, 0), tm)
+        return tm
+
+    def _show_type3(self, canvas, gs, tm, text, resources, depth):
+        """Type3 fonts: each glyph is a content stream (CharProcs),
+        executed with FontMatrix x text rendering matrix (9.6.5)."""
+        r = self.reader
+        font = gs.font
+        fm = r.resolve(font.get('FontMatrix')) or [0.001, 0, 0,
+                                                   0.001, 0, 0]
+        fm = tuple(float(r.resolve(v)) for v in fm)
+        charprocs = r.resolve(font.get('CharProcs')) or {}
+        t3res = r.resolve(font.get('Resources')) or resources or {}
+        diffs = {}
+        enc = r.resolve(font.get('Encoding'))
+        if isinstance(enc, dict):
+            code = 0
+            for item in (r.resolve(enc.get('Differences')) or []):
+                item = r.resolve(item)
+                if isinstance(item, (int, float)):
+                    code = int(item)
+                elif isinstance(item, PName):
+                    diffs[code] = str(item)
+                    code += 1
+        first = r.resolve(font.get('FirstChar'))
+        widths = r.resolve(font.get('Widths')) or []
+        fs = gs.fsize
+        paint = gs.render_mode not in (3, 7)
+        if self._text_record is not None:
+            self._text_run += 1
+        for code in text:
+            wg = 0.0
+            if isinstance(first, int) and 0 <= code - first < len(widths):
+                try:
+                    wg = float(r.resolve(widths[code - first]))
+                except (TypeError, ValueError):
+                    pass
+            # Type3 widths live in GLYPH space: map through FontMatrix
+            wsp = gs.word_spc if code == 32 else 0.0
+            adv = (wg * fm[0] * fs + gs.char_spc + wsp) * gs.hscale
+            name = diffs.get(code)
+            if self._text_record is not None:
+                trm = _mat_mul(tm, gs.ctm)
+                self._text_record.append((
+                    font, code, 1, self._text_run,
+                    _mat_apply(trm, 0, gs.rise),
+                    _mat_apply(trm, wg * fm[0] * fs * gs.hscale,
+                               gs.rise),
+                    _mat_apply(trm, 0, gs.rise + 0.72 * fs),
+                    _mat_apply(trm, 0, gs.rise - 0.18 * fs),
+                    fs))
+                tm = _mat_mul((1, 0, 0, 1, adv, 0), tm)
+                continue
+            proc = r.resolve(charprocs.get(name)) if name else None
+            if paint and isinstance(proc, PStream) and depth <= 8:
+                sub_gs = gs.copy()
+                trm = _mat_mul(tm, gs.ctm)
+                gm = _mat_mul((fs * gs.hscale, 0, 0, fs, 0, gs.rise),
+                              trm)
+                sub_gs.ctm = _mat_mul(fm, gm)
+                try:
+                    self._execute(proc.decoded(), t3res, canvas, sub_gs,
+                                  depth + 1)
+                except Exception:
+                    pass
+            tm = _mat_mul((1, 0, 0, 1, adv, 0), tm)
+        return tm
+
+    # ---- colour spaces -------------------------------------------------
+
+    def _cs_components(self, resources, name):
+        r = self.reader
+        nm = str(name)
+        if nm in ('DeviceGray', 'CalGray', 'G'):
+            return 1
+        if nm in ('DeviceRGB', 'CalRGB', 'RGB', 'Lab'):
+            return 3
+        if nm in ('DeviceCMYK', 'CMYK'):
+            return 4
+        spaces = r.resolve(resources.get('ColorSpace')) or {}
+        cs = r.resolve(spaces.get(nm))
+        dev = r._device_colorspace(cs)
+        return {'DeviceGray': 1, 'DeviceRGB': 3,
+                'DeviceCMYK': 4}.get(dev, 3)
+
+    # ---- images --------------------------------------------------------
 
     def _decode_image_array(self, stream):
         """RGB float array in [0, 1] + optional alpha (H, W) or None."""
@@ -31,11 +1376,11 @@ class Rasterizer(_shared.Rasterizer):
             if isinstance(filt, list):
                 filt = filt[-1] if filt else None
             if str(filt) == 'JBIG2Decode':
-                from archive_pdf_tools_tpu.codecs.jbig2 import decode_jbig2
+                from ..codecs.jbig2 import decode_jbig2
                 bits = decode_jbig2(stream.raw, w, h)
             elif str(filt) == 'CCITTFaxDecode':
-                from archive_pdf_tools_tpu.codecs.ccitt import (
-                    decode_ccitt, pdf_fax_params)
+                from ..codecs.ccitt import decode_ccitt, \
+                    pdf_fax_params
                 k, ba, b1 = pdf_fax_params(r.resolve, d)
                 bits = np.asarray(decode_ccitt(
                     stream.raw, w, h, k=k, byte_align=ba,
@@ -63,12 +1408,680 @@ class Rasterizer(_shared.Rasterizer):
             alpha = sarr
         return arr, alpha
 
+    def _draw_inline_image(self, canvas, gs, params, data, resources):
+        """BI/ID/EI images (ISO 32000-1 8.9.7, abbreviated keys)."""
+        import zlib
+        p = {_INLINE_ABBREV.get(k, k): v for k, v in params.items()}
+        w = int(p.get('Width', 0))
+        h = int(p.get('Height', 0))
+        if w <= 0 or h <= 0:
+            return
+        bpc = int(p.get('BitsPerComponent', 8))
+        filts = p.get('Filter')
+        filts = [filts] if isinstance(filts, PName) else (filts or [])
+        for f in filts:
+            f = _INLINE_FILT.get(str(f), str(f))
+            if f == 'ASCIIHexDecode':
+                data = bytes.fromhex(
+                    data.replace(b'\n', b'').replace(b'\r', b'')
+                        .replace(b' ', b'').rstrip(b'>').decode(
+                            'ascii', 'ignore'))
+            elif f == 'ASCII85Decode':
+                import base64
+                data = base64.a85decode(data.rstrip(b'~>'),
+                                        adobe=False)
+            elif f == 'FlateDecode':
+                data = zlib.decompress(data)
+            elif f == 'DCTDecode':
+                from PIL import Image as _I
+                arr = np.asarray(
+                    _I.open(io.BytesIO(data)).convert('RGB'),
+                    np.float32) / 255.0
+                self._paint_sampled(canvas, gs, arr, None)
+                return
+            elif f == 'CCITTFaxDecode':
+                from ..codecs.ccitt import decode_ccitt
+                dp = p.get('DecodeParms')
+                if isinstance(dp, list):
+                    dp = dp[-1] if dp else None
+                if not isinstance(dp, dict):
+                    dp = {}
+                bits = np.asarray(decode_ccitt(
+                    bytes(data), w, h,
+                    k=int(dp.get('K', 0) or 0),
+                    byte_align=bool(dp.get('EncodedByteAlign')),
+                    black_is_1=bool(dp.get('BlackIs1'))))
+                data = np.packbits(bits, axis=-1).tobytes()
+            elif f == 'LZWDecode':
+                from .reader import lzw_decode
+                dp = p.get('DecodeParms')
+                if isinstance(dp, list):
+                    dp = dp[-1] if dp else None
+                early = dp.get('EarlyChange', 1) \
+                    if isinstance(dp, dict) else 1
+                data = lzw_decode(data, int(early))
+            elif f == 'RunLengthDecode':
+                from .reader import _rle_decode
+                data = _rle_decode(bytes(data))
+            else:
+                return      # unknown filter: skip the image
+        cs = p.get('ColorSpace')
+        cs = _INLINE_CS.get(str(cs), str(cs) if cs else None)
+        is_mask = p.get('ImageMask') is True
+        if is_mask or bpc == 1:
+            stride = (w + 7) // 8
+            bits = np.unpackbits(
+                np.frombuffer(data[:stride * h],
+                              np.uint8).reshape(h, stride),
+                axis=1)[:, :w].astype(bool)
+            if is_mask:
+                dec = p.get('Decode')
+                samples = bits
+                if dec and float(dec[0]) == 1.0:
+                    samples = ~samples
+                self._paint_sampled(canvas, gs, None, ~samples)
+            else:
+                arr = np.where(bits[..., None], 1.0, 0.0) \
+                    .astype(np.float32).repeat(3, axis=-1)
+                self._paint_sampled(canvas, gs, arr, None)
+            return
+        ncomp = {'DeviceGray': 1, 'DeviceRGB': 3,
+                 'DeviceCMYK': 4}.get(cs)
+        if ncomp is None:
+            # named colour space: resolve via the page resources
+            ncomp = self._cs_components(resources, cs or 'DeviceGray')
+        if bpc != 8 or len(data) < w * h * ncomp:
+            return
+        arr = np.frombuffer(data[:w * h * ncomp], np.uint8) \
+            .reshape(h, w, ncomp).astype(np.float32) / 255.0
+        if ncomp == 1:
+            arr = arr.repeat(3, axis=-1)
+        elif ncomp == 4:
+            arr = np.stack(_cmyk_to_rgb_arr(*(arr[..., i]
+                                              for i in range(4))),
+                           axis=-1)
+        self._paint_sampled(canvas, gs, arr, None)
+
+    # ---- shadings ------------------------------------------------------
+
+    def _eval_function(self, fn, t):
+        """Evaluate a PDF function at scalar array t -> (N, ncomp).
+        Types 2 (exponential) and 3 (stitching); otherwise None."""
+        r = self.reader
+        fn = r.resolve(fn)
+        if isinstance(fn, list):
+            cols = [self._eval_function(f, t) for f in fn]
+            if any(c is None for c in cols):
+                return None
+            return np.concatenate(cols, axis=-1)
+        d = fn.dict if isinstance(fn, PStream) else fn
+        if not isinstance(d, dict):
+            return None
+        ftype = r.resolve(d.get('FunctionType'))
+        dom = [float(r.resolve(v))
+               for v in (r.resolve(d.get('Domain')) or [0, 1])]
+        t = np.clip(t, dom[0], dom[1])
+        if ftype == 0 and isinstance(fn, PStream) and len(dom) == 2:
+            # sampled function, 1-D domain (the shading case): linear
+            # interpolation between samples, Encode/Decode defaults
+            # per 7.10.2
+            try:
+                data = fn.decoded()
+            except Exception:
+                return None
+            size = [int(r.resolve(v))
+                    for v in (r.resolve(d.get('Size')) or [])]
+            rng = [float(r.resolve(v))
+                   for v in (r.resolve(d.get('Range')) or [])]
+            bps = int(r.resolve(d.get('BitsPerSample') or 8))
+            if len(size) != 1 or not rng or bps not in (1, 2, 4, 8,
+                                                        16, 32):
+                return None
+            n = size[0]
+            nout = len(rng) // 2
+            count = n * nout
+            if bps == 8:
+                samples = np.frombuffer(data, np.uint8, min(
+                    count, len(data))).astype(np.float64)
+            elif bps == 16:
+                samples = np.frombuffer(data, '>u2', min(
+                    count, len(data) // 2)).astype(np.float64)
+            elif bps == 32:
+                samples = np.frombuffer(data, '>u4', min(
+                    count, len(data) // 4)).astype(np.float64)
+            else:
+                bits = np.unpackbits(np.frombuffer(data, np.uint8))
+                usable = (len(bits) // bps) * bps
+                samples = bits[:usable].reshape(-1, bps)
+                samples = (samples * (1 << np.arange(bps - 1, -1, -1))
+                           ).sum(axis=1).astype(np.float64)
+            if len(samples) < count:
+                return None
+            samples = samples[:count].reshape(n, nout)
+            maxv = float((1 << bps) - 1) if bps < 32 else 4294967295.0
+            enc = [float(r.resolve(v))
+                   for v in (r.resolve(d.get('Encode')) or [0, n - 1])]
+            dcd = [float(r.resolve(v))
+                   for v in (r.resolve(d.get('Decode')) or rng)]
+            u = (t - dom[0]) / max(dom[1] - dom[0], 1e-9)
+            u = np.clip(enc[0] + u * (enc[1] - enc[0]), 0, n - 1)
+            i0 = np.minimum(u.astype(np.int64), n - 2) if n > 1 \
+                else np.zeros(len(u), np.int64)
+            frac = (u - i0)[:, None] if n > 1 else 0.0
+            s0 = samples[i0]
+            s1 = samples[np.minimum(i0 + 1, n - 1)]
+            vals = (s0 + (s1 - s0) * frac) / maxv
+            lo = np.array(dcd[0::2])
+            hi = np.array(dcd[1::2])
+            return lo[None, :] + vals * (hi - lo)[None, :]
+        if ftype == 2:
+            c0 = np.array([float(r.resolve(v)) for v in
+                           (r.resolve(d.get('C0')) or [0.0])])
+            c1 = np.array([float(r.resolve(v)) for v in
+                           (r.resolve(d.get('C1')) or [1.0])])
+            n = float(r.resolve(d.get('N', 1)))
+            u = (t - dom[0]) / max(dom[1] - dom[0], 1e-9)
+            return c0[None, :] + (u ** n)[:, None] * (c1 - c0)[None, :]
+        if ftype == 3:
+            fns = r.resolve(d.get('Functions')) or []
+            bounds = [float(r.resolve(v))
+                      for v in (r.resolve(d.get('Bounds')) or [])]
+            enc = [float(r.resolve(v))
+                   for v in (r.resolve(d.get('Encode'))
+                             or [0, 1] * len(fns))]
+            edges = [dom[0]] + bounds + [dom[1]]
+            out = None
+            for i, sub in enumerate(fns):
+                lo, hi = edges[i], edges[i + 1]
+                sel = (t >= lo) & (t <= hi) if i == len(fns) - 1 \
+                    else (t >= lo) & (t < hi)
+                if not sel.any():
+                    continue
+                u = (t[sel] - lo) / max(hi - lo, 1e-9)
+                u = enc[2 * i] + u * (enc[2 * i + 1] - enc[2 * i])
+                vals = self._eval_function(sub, u)
+                if vals is None:
+                    return None
+                if out is None:
+                    out = np.zeros((len(t), vals.shape[-1]))
+                out[sel] = vals
+            return out
+        return None
+
+    def _draw_mesh_shading(self, canvas, gs, sh, d):
+        """Mesh shadings (T.88-adjacent no — ISO 32000 8.7.4.5.5-8):
+        free-form (4) and lattice-form (5) Gouraud triangles decoded
+        exactly; Coons (6) and tensor (7) patches tessellated on an
+        NxN parameter grid with bilinear-Bezier boundaries.  Returns
+        True when painted (False -> caller's 50%-gray fallback).
+        Closes VERDICT r2 missing #5 for the common mesh forms."""
+        r = self.reader
+        try:
+            data = sh.decoded()
+        except Exception:
+            return False
+        stype = int(r.resolve(d.get('ShadingType')))
+        bpc = int(r.resolve(d.get('BitsPerCoordinate') or 16))
+        bpcomp = int(r.resolve(d.get('BitsPerComponent') or 8))
+        bpf = int(r.resolve(d.get('BitsPerFlag') or 8))
+        dec = [float(r.resolve(v))
+               for v in (r.resolve(d.get('Decode')) or [])]
+        fn = d.get('Function')
+        if len(dec) < 6:
+            return False
+        ncol = (len(dec) - 4) // 2
+        if ncol < 1:
+            return False
+
+        bits = np.unpackbits(np.frombuffer(data, np.uint8))
+        pos = [0]
+        # widths are spec-capped at 32 (BitsPerCoordinate), so an int64
+        # weight dot is exact; the old per-bit Python loop cost ~nbits
+        # interpreter ops per field
+        _pow2 = (np.int64(1) << np.arange(31, -1, -1)).astype(np.int64)
+
+        def take(nbits):
+            j = pos[0]
+            if j + nbits > len(bits):
+                raise IndexError('mesh stream exhausted')
+            pos[0] = j + nbits
+            return int(bits[j:j + nbits].astype(np.int64)
+                       @ _pow2[32 - nbits:])
+
+        def dmap(v, nbits, lo, hi):
+            return lo + (hi - lo) * (v / float((1 << nbits) - 1))
+
+        def read_vertex(with_flag):
+            flag = take(bpf) if with_flag else 0
+            x = dmap(take(bpc), bpc, dec[0], dec[1])
+            y = dmap(take(bpc), bpc, dec[2], dec[3])
+            col = [dmap(take(bpcomp), bpcomp, dec[4 + 2 * k],
+                        dec[5 + 2 * k]) for k in range(ncol)]
+            return flag, (x, y), col
+
+        def bulk_vertices(flagged):
+            """Decode every vertex record at once when all field widths
+            are byte-aligned (the 8/16/32-bit defaults): a 1e5-vertex
+            lattice through the bit-level path is minutes of single-core
+            Python; fixed-width byte slicing is milliseconds.  Returns
+            (flags|None, P[n,2], C[n,ncol]) or None for odd widths."""
+            if bpc % 8 or bpcomp % 8 or (flagged and bpf % 8):
+                return None
+            rb = ((bpf if flagged else 0) + 2 * bpc + ncol * bpcomp) // 8
+            n = len(data) // rb
+            if not n:
+                return None
+            buf = np.frombuffer(data, np.uint8,
+                                count=n * rb).reshape(n, rb)
+            off = [0]
+
+            def field(width):
+                v = np.zeros(n, np.int64)
+                for b in range(width // 8):
+                    v = (v << 8) | buf[:, off[0] + b].astype(np.int64)
+                off[0] += width // 8
+                return v
+
+            flags = field(bpf) if flagged else None
+            x = dmap(field(bpc), bpc, dec[0], dec[1])
+            y = dmap(field(bpc), bpc, dec[2], dec[3])
+            cols = np.stack(
+                [dmap(field(bpcomp), bpcomp, dec[4 + 2 * k],
+                      dec[5 + 2 * k]) for k in range(ncol)], axis=1) \
+                if ncol else np.zeros((n, 0))
+            return flags, np.stack([x, y], axis=1), cols
+
+        tris = []      # ((p0, p1, p2), (c0, c1, c2)) user-space
+        try:
+            if stype == 4:
+                bulk = bulk_vertices(True)
+                if bulk is not None:
+                    flags, P, C = bulk
+                    verts = [(tuple(P[i]), list(C[i]))
+                             for i in range(len(P))]
+                else:
+                    flags, verts = [], []
+                    while pos[0] + bpf + 2 * bpc + ncol * bpcomp \
+                            <= len(bits):
+                        flag, p, c = read_vertex(True)
+                        flags.append(flag)
+                        verts.append((p, c))
+                va = vb = vc = None
+                i = 0
+                while i < len(verts):
+                    flag = int(flags[i])
+                    if flag == 0:
+                        if i + 2 >= len(verts):
+                            break
+                        va, vb, vc = verts[i], verts[i + 1], verts[i + 2]
+                        i += 3
+                    elif flag == 1 and vc is not None:
+                        va, vb, vc = vb, vc, verts[i]
+                        i += 1
+                    elif flag == 2 and vc is not None:
+                        va, vb, vc = va, vc, verts[i]
+                        i += 1
+                    else:
+                        break
+                    tris.append(((va[0], vb[0], vc[0]),
+                                 (va[1], vb[1], vc[1])))
+            elif stype == 5:
+                vpr = int(r.resolve(d.get('VerticesPerRow') or 0))
+                if vpr < 2:
+                    return False
+                bulk = bulk_vertices(False)
+                if bulk is not None:
+                    _f, P, C = bulk
+                    rows = [[(tuple(P[r * vpr + j]),
+                              list(C[r * vpr + j]))
+                             for j in range(vpr)]
+                            for r in range(len(P) // vpr)]
+                else:
+                    rows = []
+                    while pos[0] + 2 * bpc + ncol * bpcomp <= len(bits):
+                        row = [read_vertex(False)[1:]
+                               for _ in range(vpr)]
+                        rows.append(row)
+                for i in range(len(rows) - 1):
+                    for j in range(vpr - 1):
+                        p00, c00 = rows[i][j]
+                        p01, c01 = rows[i][j + 1]
+                        p10, c10 = rows[i + 1][j]
+                        p11, c11 = rows[i + 1][j + 1]
+                        tris.append(((p00, p01, p10),
+                                     (c00, c01, c10)))
+                        tris.append(((p01, p11, p10),
+                                     (c01, c11, c10)))
+            else:                          # 6 = Coons, 7 = tensor
+                npts = 12 if stype == 6 else 16
+                prev_pts = prev_cols = None
+                K = 6
+                while pos[0] + bpf <= len(bits):
+                    flag = take(bpf)
+                    need = (npts if flag == 0 else npts - 4) * 2 * bpc \
+                        + (4 if flag == 0 else 2) * ncol * bpcomp
+                    if pos[0] + need > len(bits):
+                        break
+                    n_new = npts if flag == 0 else npts - 4
+                    pts = [(dmap(take(bpc), bpc, dec[0], dec[1]),
+                            dmap(take(bpc), bpc, dec[2], dec[3]))
+                           for _ in range(n_new)]
+                    cols = [[dmap(take(bpcomp), bpcomp,
+                                  dec[4 + 2 * k], dec[5 + 2 * k])
+                             for k in range(ncol)]
+                            for _ in range(4 if flag == 0 else 2)]
+                    if flag != 0:
+                        if prev_pts is None:
+                            break
+                        # shared edge: previous patch's edge becomes
+                        # p1..p4 of the new patch (8.7.4.5.7 table 85)
+                        edges = {1: prev_pts[3:7],
+                                 2: prev_pts[6:10],
+                                 3: prev_pts[9:12] + prev_pts[0:1]}
+                        ecols = {1: [prev_cols[1], prev_cols[2]],
+                                 2: [prev_cols[2], prev_cols[3]],
+                                 3: [prev_cols[3], prev_cols[0]]}
+                        pts = edges[flag] + pts
+                        cols = ecols[flag] + cols
+                    prev_pts, prev_cols = pts[:12], cols
+                    b_ = pts       # boundary control points p1..p12
+                    corners = [b_[0], b_[3], b_[6], b_[9]]
+                    ccols = cols
+
+                    def bez(p0, p1, p2, p3, t):
+                        mt = 1 - t
+                        return (mt ** 3 * p0[0] + 3 * mt * mt * t *
+                                p1[0] + 3 * mt * t * t * p2[0]
+                                + t ** 3 * p3[0],
+                                mt ** 3 * p0[1] + 3 * mt * mt * t *
+                                p1[1] + 3 * mt * t * t * p2[1]
+                                + t ** 3 * p3[1])
+
+                    # Coons surface from the four boundary beziers
+                    def surf(u, v):
+                        top = bez(b_[0], b_[1], b_[2], b_[3], u)
+                        right = bez(b_[3], b_[4], b_[5], b_[6], v)
+                        bottom = bez(b_[9], b_[8], b_[7], b_[6], u)
+                        left = bez(b_[0], b_[11], b_[10], b_[9], v)
+                        cx = ((1 - v) * top[0] + v * bottom[0]
+                              + (1 - u) * left[0] + u * right[0]
+                              - ((1 - u) * (1 - v) * corners[0][0]
+                                 + u * (1 - v) * corners[1][0]
+                                 + u * v * corners[2][0]
+                                 + (1 - u) * v * corners[3][0]))
+                        cy = ((1 - v) * top[1] + v * bottom[1]
+                              + (1 - u) * left[1] + u * right[1]
+                              - ((1 - u) * (1 - v) * corners[0][1]
+                                 + u * (1 - v) * corners[1][1]
+                                 + u * v * corners[2][1]
+                                 + (1 - u) * v * corners[3][1]))
+                        return (cx, cy)
+
+                    def ccol(u, v):
+                        return [((1 - u) * (1 - v) * ccols[0][k]
+                                 + u * (1 - v) * ccols[1][k]
+                                 + u * v * ccols[2][k]
+                                 + (1 - u) * v * ccols[3][k])
+                                for k in range(ncol)]
+
+                    grid = [[(surf(i / K, j / K), ccol(i / K, j / K))
+                             for i in range(K + 1)]
+                            for j in range(K + 1)]
+                    for j in range(K):
+                        for i in range(K):
+                            p00, c00 = grid[j][i]
+                            p01, c01 = grid[j][i + 1]
+                            p10, c10 = grid[j + 1][i]
+                            p11, c11 = grid[j + 1][i + 1]
+                            tris.append(((p00, p01, p10),
+                                         (c00, c01, c10)))
+                            tris.append(((p01, p11, p10),
+                                         (c01, c11, c10)))
+        except IndexError:
+            pass
+        if not tris:
+            return False
+
+        # map parametric colors through the shading function per
+        # unique vertex value; otherwise treat as color components
+        def to_rgb(colvecs):
+            arr = np.asarray(colvecs, np.float64)
+            if fn is not None:
+                vals = self._eval_function(fn, arr[:, 0])
+                if vals is None:
+                    return None
+                arr = vals
+            nc = arr.shape[-1]
+            if nc == 1:
+                return np.repeat(arr, 3, axis=-1)
+            if nc == 4:
+                return np.stack(_cmyk_to_rgb_arr(arr[:, 0], arr[:, 1],
+                                                 arr[:, 2], arr[:, 3]),
+                                axis=-1)
+            return arr[:, :3]
+
+        H, W = canvas.shape[:2]
+        m = gs.ctm
+        for (pts, cols) in tris:
+            rgb = to_rgb(cols)
+            if rgb is None:
+                return False
+            devs = [(m[0] * x + m[2] * y + m[4],
+                     m[1] * x + m[3] * y + m[5]) for (x, y) in pts]
+            xs = [p[0] for p in devs]
+            ys = [p[1] for p in devs]
+            x0 = max(int(np.floor(min(xs))), 0)
+            x1 = min(int(np.ceil(max(xs))) + 1, W)
+            y0 = max(int(np.floor(min(ys))), 0)
+            y1 = min(int(np.ceil(max(ys))) + 1, H)
+            if x0 >= x1 or y0 >= y1:
+                continue
+            (ax, ay), (bx, by), (cx, cy) = devs
+            det = (bx - ax) * (cy - ay) - (cx - ax) * (by - ay)
+            if abs(det) < 1e-12:
+                continue
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            px = xx + 0.5
+            py = yy + 0.5
+            l1 = ((px - ax) * (cy - ay) - (cx - ax) * (py - ay)) / det
+            l2 = ((bx - ax) * (py - ay) - (px - ax) * (by - ay)) / det
+            l0 = 1.0 - l1 - l2
+            inside = (l0 >= -1e-6) & (l1 >= -1e-6) & (l2 >= -1e-6)
+            if gs.clip is not None:
+                inside &= gs.clip[y0:y1, x0:x1]
+            if not inside.any():
+                continue
+            col = (l0[..., None] * rgb[0] + l1[..., None] * rgb[1]
+                   + l2[..., None] * rgb[2])
+            col = np.clip(col, 0.0, 1.0) * 255.0
+            self._write(canvas[y0:y1, x0:x1], inside, col, gs,
+                        org=(y0, x0))
+        return True
+
+    def _draw_shading(self, canvas, gs, resources, name):
+        """sh operator: evaluate axial (2) / radial (3) shadings with
+        exponential/stitching functions; anything else paints 50% gray
+        (colour-mode conservative)."""
+        r = self.reader
+        sh = None
+        if name is not None:
+            shades = r.resolve(resources.get('Shading')) or {}
+            sh = r.resolve(shades.get(str(name)))
+        if not isinstance(sh, (dict, PStream)):
+            self._fill_clip(canvas, gs, (0.5, 0.5, 0.5))
+            return
+        d = sh.dict if isinstance(sh, PStream) else sh
+        stype = r.resolve(d.get('ShadingType'))
+        coords = [float(r.resolve(v))
+                  for v in (r.resolve(d.get('Coords')) or [])]
+        fn = d.get('Function')
+        if stype in (4, 5, 6, 7) and isinstance(sh, PStream):
+            if self._draw_mesh_shading(canvas, gs, sh, d):
+                return
+            self._fill_clip(canvas, gs, (0.5, 0.5, 0.5))
+            return
+        if stype not in (2, 3) or fn is None:
+            self._fill_clip(canvas, gs, (0.5, 0.5, 0.5))
+            return
+        H, W = canvas.shape[:2]
+        inv = _mat_inv(gs.ctm)
+        if inv is None:
+            return
+        if stype == 2 and len(coords) >= 4:
+            pass
+        elif stype == 3 and len(coords) >= 6:
+            pass
+        else:
+            self._fill_clip(canvas, gs, (0.5, 0.5, 0.5))
+            return
+        # paint only the clip's bounding rows, in row chunks of f32 —
+        # a full-page f64 evaluation at 600 ppi allocates gigabytes
+        if gs.clip is not None:
+            rows = np.flatnonzero(gs.clip.any(axis=1))
+            cols = np.flatnonzero(gs.clip.any(axis=0))
+            if not len(rows):
+                return
+            ry0, ry1 = int(rows[0]), int(rows[-1]) + 1
+            cx0, cx1 = int(cols[0]), int(cols[-1]) + 1
+        else:
+            ry0, ry1, cx0, cx1 = 0, H, 0, W
+        a, b, c, dd, e, f = inv
+        for y0c in range(ry0, ry1, 256):
+            y1c = min(y0c + 256, ry1)
+            ys, xs = np.mgrid[y0c:y1c, cx0:cx1]
+            ux = (a * (xs + 0.5) + c * (ys + 0.5) + e).astype(np.float32)
+            uy = (b * (xs + 0.5) + dd * (ys + 0.5) + f) \
+                .astype(np.float32)
+            if stype == 2:
+                x0, y0, x1, y1 = coords[:4]
+                dx, dy = x1 - x0, y1 - y0
+                denom = max(dx * dx + dy * dy, 1e-9)
+                t = ((ux - x0) * dx + (uy - y0) * dy) / denom
+            else:
+                x0, y0, _r0, x1, y1, r1 = coords[:6]
+                # approximate: parameter from distance to outer circle
+                dist = np.sqrt((ux - x1) ** 2 + (uy - y1) ** 2)
+                t = dist / max(r1, 1e-9)
+            t = np.clip(t, 0.0, 1.0)
+            vals = self._eval_function(fn, t.ravel())
+            if vals is None:
+                self._fill_clip(canvas, gs, (0.5, 0.5, 0.5))
+                return
+            ncomp = vals.shape[-1]
+            if ncomp == 1:
+                rgbv = np.repeat(vals, 3, axis=-1)
+            elif ncomp == 4:
+                rgbv = np.stack(
+                    _cmyk_to_rgb_arr(vals[:, 0], vals[:, 1],
+                                     vals[:, 2], vals[:, 3]), axis=-1)
+            else:
+                rgbv = vals[:, :3]
+            img = np.clip(rgbv.reshape(y1c - y0c, cx1 - cx0, 3),
+                          0, 1).astype(np.float32) * 255.0
+            region = canvas[y0c:y1c, cx0:cx1]
+            sel = gs.clip[y0c:y1c, cx0:cx1] if gs.clip is not None \
+                else np.ones(region.shape[:2], bool)
+            self._write(region, sel, img, gs, org=(y0c, cx0))
+
+    def _paint_sampled(self, canvas, gs, arr, stencil_alpha,
+                       blend_alpha=None):
+        """Shared inverse-mapped painter for decoded sample arrays:
+        arr (h, w, 3) float in [0,1] (with an optional (h, w) float
+        blend_alpha for SMask compositing), or arr=None with a boolean
+        stencil painting the fill colour."""
+        H, W = canvas.shape[:2]
+        inv = _mat_inv(gs.ctm)
+        if inv is None:
+            return
+        corners = [_mat_apply(gs.ctm, x, y)
+                   for (x, y) in ((0, 0), (1, 0), (0, 1), (1, 1))]
+        x0 = max(0, int(np.floor(min(p[0] for p in corners))))
+        x1 = min(W, int(np.ceil(max(p[0] for p in corners))))
+        y0 = max(0, int(np.floor(min(p[1] for p in corners))))
+        y1 = min(H, int(np.ceil(max(p[1] for p in corners))))
+        if x0 >= x1 or y0 >= y1:
+            return
+        ys, xs = np.mgrid[y0:y1, x0:x1]
+        a, b, c, d, e, f = inv
+        u = a * (xs + 0.5) + c * (ys + 0.5) + e
+        v = b * (xs + 0.5) + d * (ys + 0.5) + f
+        inside = (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
+        if gs.clip is not None:
+            inside &= gs.clip[y0:y1, x0:x1]
+        if not inside.any():
+            return
+        region = canvas[y0:y1, x0:x1]
+        if arr is None:
+            ih, iw = stencil_alpha.shape
+            sx = np.clip((u * iw).astype(np.int64), 0, iw - 1)
+            sy = np.clip(((1 - v) * ih).astype(np.int64), 0, ih - 1)
+            paint = inside & stencil_alpha[sy, sx]
+            self._write(region, paint,
+                        np.array(gs.fill, np.float32) * 255.0, gs,
+                        org=(y0, x0))
+            return
+        ih, iw = arr.shape[:2]
+        sx = np.clip((u * iw).astype(np.int64), 0, iw - 1)
+        sy = np.clip(((1 - v) * ih).astype(np.int64), 0, ih - 1)
+        src = arr[sy, sx] * 255.0
+        av = blend_alpha[sy, sx] if blend_alpha is not None else None
+        self._write(region, inside, src, gs, alpha=av, org=(y0, x0))
+
+    def _draw_image(self, canvas, gs, stream):
+        try:
+            arr, alpha = self._decode_image_array(stream)
+        except Exception:
+            return
+        if arr is None:
+            self._paint_sampled(canvas, gs, None, alpha)
+        else:
+            self._paint_sampled(canvas, gs, arr, None,
+                                blend_alpha=alpha)
+
+
+def image_placements(reader, idx):
+    """[(name, transform, xref_num, stream)] for every image Do
+    executed on page ``idx`` (Form XObject recursion included), in draw
+    order, without painting.  Transforms map the unit square to the
+    placed quad in TOP-LEFT-origin page coordinates (the fitz
+    convention the reference's pdf-metadata-json reports,
+    ``bin/pdf-metadata-json:294-321``)."""
+    r = reader
+    page = r.pages()[idx]
+    box = r._inherited(page, 'MediaBox') or [0, 0, 612, 792]
+    box = [float(r.resolve(v)) for v in box]
+    ras = Rasterizer(r)
+    ras.skip_images = True
+    ras._record = []
+    gs = _GState()
+    # 1:1 scale, y flipped so coordinates are top-left origin
+    gs.ctm = (1.0, 0.0, 0.0, -1.0, -box[0], box[3])
+    res = r._inherited(page, 'Resources') or {}
+    canvas = np.zeros((1, 1, 3), np.float32)   # nothing paints
+    try:
+        ras._execute(r.page_contents(idx), res, canvas, gs, depth=0)
+    except Exception:
+        pass
+    return ras._record
+
+
+_INLINE_ABBREV = {'W': 'Width', 'H': 'Height', 'BPC': 'BitsPerComponent',
+                  'CS': 'ColorSpace', 'F': 'Filter', 'D': 'Decode',
+                  'IM': 'ImageMask', 'DP': 'DecodeParms', 'I': 'Interpolate'}
+_INLINE_CS = {'G': 'DeviceGray', 'RGB': 'DeviceRGB', 'CMYK': 'DeviceCMYK',
+              'I': 'Indexed'}
+_INLINE_FILT = {'AHx': 'ASCIIHexDecode', 'A85': 'ASCII85Decode',
+                'Fl': 'FlateDecode', 'RL': 'RunLengthDecode',
+                'CCF': 'CCITTFaxDecode', 'DCT': 'DCTDecode'}
+
 
 def render_page_image(reader, idx, ppi=None):
     """Render page ``idx`` to a PIL image at ``ppi`` (default: the
     resolution of the page's largest embedded image, clamped to
     [72, 600], or 300 without images).  Collapses equal RGB channels to
-    'L' and exact-binary pages to '1' (threshold, not dithered)."""
+    'L' and exact-binary pages to '1' (threshold, NOT dithered — a
+    Floyd-Steinberg convert would destroy any grayscale a sampled check
+    missed, so binarity is tested over the full channel)."""
     from PIL import Image
     imgs = reader.page_images(idx)
     pw, _ph = reader.page_size(idx)
@@ -86,3 +2099,23 @@ def render_page_image(reader, idx, ppi=None):
             return Image.fromarray(ch >= 128)
         return Image.fromarray(ch)
     return Image.fromarray(arr)
+
+
+def page_colour_mode(reader, idx, scale=None):
+    """Reference-parity colour-mode probe: render the page with images
+    removed, classify the remaining marks (bin/pdf-metadata-json:61-114).
+    Returns 'Bitonal' / 'Grayscale' / 'RGB'."""
+    if scale is None:
+        pw, ph = reader.page_size(idx)
+        scale = min(1.0, 400.0 / max(pw, ph, 1))
+    arr = Rasterizer(reader).render_page(idx, scale=scale,
+                                         skip_images=True)
+    gray = (arr[..., 0] == arr[..., 1]).all() and \
+        (arr[..., 1] == arr[..., 2]).all()
+    if not gray:
+        return 'RGB'
+    ch = arr[..., 0]
+    mn, mx = ch.min(), ch.max()
+    if ((ch == mn) | (ch == mx)).all():
+        return 'Bitonal'
+    return 'Grayscale'

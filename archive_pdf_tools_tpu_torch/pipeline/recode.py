@@ -32,30 +32,24 @@ import numpy as np
 import torch
 from PIL import Image
 
-# first: on hosts without lxml it provides the hOCR module the shared
-# PDF builder imports (see inputs/hocr.py)
-from ..inputs.hocr import (hocr_page_iterator, hocr_page_to_word_data,
-                           hocr_page_get_dimensions, hocr_page_get_scan_res)
-
-from archive_pdf_tools_tpu.const import (
+from ..codecs.jp2tpu import transform_jp2_batch_async
+from ..codecs.jpeg2000 import (decode_jpeg2000, get_jpeg2000_info,
+                               _pillow_kwargs, DEFAULT_COMPRESSION_FLAGS,
+                               DEFAULT_JPEG_FLAGS)
+from ..codecs.mrc_encode import (encode_mrc_images, encode_mrc_mask,
+                                 EncodedLayer, EncodedMask, PackedMask)
+from ..const import (
     IMAGE_MODE_MRC, IMAGE_MODE_SKIP, COMPRESSOR_JPEG2000, COMPRESSOR_JBIG2,
     COMPRESSOR_CCITT, JPEG2000_IMPL_PILLOW, JPEG2000_IMPL_TPU, DENOISE_FAST,
-    RECODE_RUNTIME_WARNING_INVALID_PAGE_SIZE)
-from archive_pdf_tools_tpu.codecs.jpeg2000 import (
-    decode_jpeg2000, get_jpeg2000_info, _pillow_kwargs)
-from archive_pdf_tools_tpu.codecs.mrc_encode import (
-    encode_mrc_mask, EncodedLayer, EncodedMask, PackedMask)
-from archive_pdf_tools_tpu.const import PRODUCER as JAX_PRODUCER
-from archive_pdf_tools_tpu.pdf.builder import DocumentBuilder
-from archive_pdf_tools_tpu.pdf.reader import PdfReader
-from archive_pdf_tools_tpu.pdf.writer import Name
-from archive_pdf_tools_tpu.pipeline.timing import get_timing_summary, Reporter
-
-from .. import PRODUCER
-from ..codecs.jp2tpu import transform_jp2_batch_async
-from ..codecs.mrc_encode import encode_mrc_images
+    RECODE_RUNTIME_WARNING_INVALID_PAGE_SIZE, REFERENCE_PRODUCER)
+from ..inputs.hocr import (hocr_page_iterator, hocr_page_to_word_data,
+                           hocr_page_get_dimensions, hocr_page_get_scan_res)
 from ..inputs.scandata import Scandata
 from ..mrc.api import decompose_masks, decompose_layers
+from ..pdf.builder import DocumentBuilder
+from ..pdf.reader import PdfReader
+from ..pdf.writer import Name
+from ..pipeline.timing import get_timing_summary, Reporter
 from ..utils.backend import (pack_mask_bits, resolve_device,
                              unpack_mask_bits)
 
@@ -70,14 +64,6 @@ DEFAULT_BATCH_PAGES = 8
 # that one group's host Tier-1 can start while the next group is still
 # being copied back (the JAX package's APT_JP2_XFORM_GROUP default)
 JP2_FG_GROUP = 4
-
-
-def _jpeg2000_decoder(impl):
-    """The implementation that decodes a JPEG2000 input page.  -J tpu
-    writes standard Part-1 streams, which the shared ``decode_jpeg2000``
-    decodes through Pillow, but its check of the name 'tpu' imports the
-    JAX package's encoder, so the port asks for Pillow by name."""
-    return JPEG2000_IMPL_PILLOW if impl == JPEG2000_IMPL_TPU else impl
 
 
 def _jp2_transform_args(flags):
@@ -153,8 +139,7 @@ def create_text_pages(builder, hocr_file, in_pdf=None, image_files=None,
             imgfile = image_files[idx]   # do not subtract skipped pages
             if imgfile.endswith('.jp2'):
                 size, _ = get_jpeg2000_info(
-                    imgfile, _jpeg2000_decoder(jpeg2000_implementation),
-                    errors)
+                    imgfile, jpeg2000_implementation, errors)
                 imwidth, imheight = size
             else:
                 with Image.open(imgfile) as img:
@@ -203,7 +188,7 @@ def _decode_pdf_image(reader, stream):
         except Exception:
             pass
     if filt == 'JBIG2Decode':
-        from archive_pdf_tools_tpu.codecs.jbig2 import decode_jbig2
+        from ..codecs.jbig2 import decode_jbig2
         bits = decode_jbig2(raw, w, h)
         # jbig2 white (0) = ink-opaque; a /Decode [1 0] array (symbol-
         # coded masks store ink as jbig2 black) flips the polarity
@@ -215,8 +200,7 @@ def _decode_pdf_image(reader, stream):
         # sample bits per /K //EncodedByteAlign //BlackIs1 (foreign G3
         # faxes and default-polarity G4 both appear in the wild; our
         # own masks carry /BlackIs1 true so nothing changes for them)
-        from archive_pdf_tools_tpu.codecs.ccitt import (decode_ccitt,
-                                                        pdf_fax_params)
+        from ..codecs.ccitt import decode_ccitt, pdf_fax_params
         k, ba, b1 = pdf_fax_params(reader.resolve, stream.dict)
         bits = decode_ccitt(raw, w, h, k=k, byte_align=ba,
                             black_is_1=b1)
@@ -279,8 +263,7 @@ def _load_page_image(in_pdf, image_files, src_idx, downsample,
         imgfile = image_files[src_idx]
         if imgfile.endswith(('.jp2', '.jpx')):
             image = decode_jpeg2000(imgfile, reduce_=downsample,
-                                    impl=_jpeg2000_decoder(
-                                        jpeg2000_implementation),
+                                    impl=jpeg2000_implementation,
                                     threads=threads, debug=debug)
             downsampled = bool(downsample)
         else:
@@ -693,16 +676,15 @@ def _reject_unported(image_mode, grayscale_pdf, force_1bit_output,
 
 
 def _stamp_producer(builder):
-    """Name this engine where the shared builder names the JAX package
-    (``const.PRODUCER``): Info /Producer always, and each occurrence in
-    the XMP.  The builder's own XMP holds it in pdf:Producer and in a
-    default xmp:CreatorTool, so Info and XMP agree, as PDF/A asks; an
-    XMP carried over from a source PDF is kept as the JAX ``recode()``
-    keeps it and may hold it any number of times, or none."""
-    builder.info[Name('Producer')] = PRODUCER
+    """Name this engine in an XMP carried over from a source PDF that the
+    JAX package wrote: there it names the JAX engine (pdf:Producer and a
+    default xmp:CreatorTool), which this engine's output swaps for the
+    name the builder stamped in Info, so Info and XMP agree, as PDF/A
+    asks.  The builder's own XMP already holds that name."""
     if builder.xmp is not None:
-        builder.xmp = builder.xmp.replace(xmlescape(JAX_PRODUCER),
-                                          xmlescape(PRODUCER))
+        builder.xmp = builder.xmp.replace(
+            xmlescape(REFERENCE_PRODUCER),
+            xmlescape(builder.info[Name('Producer')]))
 
 
 def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
@@ -742,8 +724,6 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
             bg_compression_flags is None or fg_compression_flags is None
             or hq_bg_compression_flags is None
             or hq_fg_compression_flags is None):
-        from archive_pdf_tools_tpu.codecs.jpeg2000 import (
-            DEFAULT_COMPRESSION_FLAGS, DEFAULT_JPEG_FLAGS)
         if mrc_image_format == COMPRESSOR_JPEG2000:
             dflt = DEFAULT_COMPRESSION_FLAGS[jpeg2000_implementation]
         else:

@@ -7,20 +7,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. Device and build: the card's name and power limit, and the nvcc
    builds of the six kernels (``archive_pdf_tools_tpu_torch/csrc``) and
    of the eight ablation builds of the blur + Sauvola kernel (K6), all
-   started together with the g++ build of the host JPEG2000 Tier-1 coder
-   (``native/jp2t1.cpp``).
+   started together with the g++ builds of the host JPEG2000 Tier-1 and
+   JBIG2 coders (``native/jp2t1.cpp``, ``native/jbig2.cpp``, into the
+   port's ``build/``).
 2. Kernel vs plain version, on the card, at the main path's shapes (a
    batch of 8 gray 400-DPI pages, 3300x2550, and their ~60 hOCR lines a
    page; RGB for the fill; the fills' gray and RGB layers for the
    JPEG2000 transform, 5 levels): each kernel must equal its plain
    PyTorch version bit for bit.  The line paste runs with the real
    selection and with an adversarial one over overlapping boxes.  Times
-   are medians of CUDA-event-timed runs after a warm-up.  Then (2b) the
+   are medians of CUDA-event-timed runs after a warm-up, each printed
+   beside its bound: the bytes the function must move (each input read
+   once, each output written once) at the card's 3.35 TB/s, or its
+   operations at the scalar peak, the larger.  Then (2b) the
    same check at small and ragged shapes: one-row, tall (> 512 rows) and
    narrow lines, pages with no lines, no selected line, the global
-   threshold at windows 183 and 201 (sums of squares past 2^31), and the
+   threshold at windows 183 and 201 (sums of squares past 2^31), the
    transform at odd sizes, one-page batches and levels capped by the
-   page size.  (2c) each ablation
+   page size, and the fill and the despeckle at their edges (widths off
+   the warp and word grain and below 2n+1 columns, fewer than 5 rows,
+   masks all set and all clear, noise at 30/50/70% ink, n=1, pages up to
+   each kernel's widest).  (2c) each ablation
    build of K3 against its plain version at the same batch, then one
    run of the ablation tool
    (``archive_pdf_tools_tpu_torch/tools/threshold_ablate.py``) at batch 2.
@@ -42,7 +49,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the small book with ``--scandata-file``.
 
 The script's wall time, the card's name and power limit and the
-kernels' JSON summary come before the last line, which is
+kernels' JSON summary come before the last line (``library_ms`` is null
+for every kernel: no single PyTorch call computes any of these
+functions), which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the run exits
 1 and prints no result.
 """
@@ -83,6 +92,10 @@ KERNELS = {
               'archive_pdf_tools_tpu/codecs/jp2tpu.py:260'),
 }
 JP2_LEVELS, JP2_DELTA = 5, 1.0 / 64          # the -J tpu defaults
+# H100 SXM peaks (NVIDIA's data sheet): device memory, and float32
+# outside the tensor cores, taken for these kernels' scalar integer work
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 
 def _wrapper_module(name):
@@ -106,6 +119,44 @@ def _cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def _nbytes(x):
+    """Bytes of a tensor or a tuple of them."""
+    if not isinstance(x, tuple):
+        x = (x,)
+    return sum(t.numel() * t.element_size() for t in x)
+
+
+def _bound(nbytes, ops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take,
+    each input byte read once and each output byte written once at the
+    memory rate, or the operations at the scalar peak, the larger."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / SCALAR_OPS_PER_S * 1e3
+    return (tb, 'bytes') if tb >= to else (to, 'operations')
+
+
+# integer or float operations an output element of each kernel takes in
+# its plain form (estimates; every kernel here is far from them)
+K1_OPS = 12         # sliding FIR and IIR sums, the division, the select
+K2_OPS = 25         # 22 neighbours, the threshold, the 2-bit state
+K4_OPS = 30         # a line's window sums and Sauvola test, a polarity
+K5_OPS = 2          # the owner test and the copy
+DWT_OPS = 30        # 9/7 lifting in both directions, ICT, quantiser
+
+
+def _k3_ops(taps):
+    """Separable blur (two multiply-adds a tap a direction), window sums
+    and the Sauvola test an output pixel."""
+    return 4 * taps.shape[1] + 20
+
+
+def _selected_bytes(lines, sel):
+    """Bytes of the crops the selector pastes (one polarity a line)."""
+    b = np.asarray(lines.boxes, np.int64)
+    sizes = (b[:, 1] - b[:, 0]) * (b[:, 3] - b[:, 2])
+    return int(sizes[np.asarray(sel) > 0].sum())
+
+
 def _max_err(got, ref):
     """Largest absolute difference over a tensor or a tuple of them."""
     import torch
@@ -121,8 +172,11 @@ def _max_err(got, ref):
     return err
 
 
-def _compare(name, kernel_fn, plain_fn, plain_reps=2):
-    """Kernel vs plain on the same inputs: bit-exact, with both times."""
+def _compare(name, kernel_fn, plain_fn, in_bytes, ops_per_out,
+             plain_reps=2):
+    """Kernel vs plain on the same inputs: bit-exact, with both times and
+    the bound (``in_bytes`` read, the result's bytes written, and
+    ``ops_per_out`` operations an output element)."""
     import torch
     got = kernel_fn()                    # warm-up + result
     ref = plain_fn()
@@ -130,11 +184,16 @@ def _compare(name, kernel_fn, plain_fn, plain_reps=2):
     err = _max_err(got, ref)
     ms = _cuda_ms(kernel_fn, 5)
     plain_ms = _cuda_ms(plain_fn, plain_reps)
-    print('  %-38s max_abs_err=%d  kernel %.3f ms  plain %.3f ms'
-          % (name, err, ms, plain_ms))
+    outs = got if isinstance(got, tuple) else (got,)
+    bound_ms, bound_by = _bound(in_bytes + _nbytes(got), ops_per_out
+                                * sum(t.numel() for t in outs))
+    print('  %-38s max_abs_err=%d  kernel %.3f ms  plain %.3f ms  bound '
+          '%.4f ms (%s), kernel at %.1fx the bound'
+          % (name, err, ms, plain_ms, bound_ms, bound_by, ms / bound_ms))
     if err != 0:
         raise SystemExit('FAIL: %s differs from its plain version' % name)
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
 def _check_equal(what, got, ref):
@@ -184,11 +243,12 @@ def phase_build():
                          text=True, check=True).stdout.strip().splitlines()[0]
     print('nvidia-smi:', smi)
     print('torch', torch.__version__, 'cuda', torch.version.cuda)
-    from archive_pdf_tools_tpu_torch.codecs import jp2host
+    from archive_pdf_tools_tpu_torch.codecs import jbig2, jp2host
 
     def host_coder():
         t = time.time()
         jp2host._get_lib()
+        jbig2._get_lib()
         return time.time() - t
 
     t0 = time.time()
@@ -200,8 +260,8 @@ def phase_build():
         builds += [ex.submit(build, v) for v in VARIANTS]
         for b in builds:
             b.result()
-        print('g++ build of native/jp2t1.cpp (host Tier-1 coder): %.2f s'
-              % t1.result())
+        print('g++ builds of native/jp2t1.cpp and native/jbig2.cpp (host '
+              'Tier-1 and JBIG2 coders): %.2f s' % t1.result())
     print('nvcc builds, all started together: %.2f s' % (time.time() - t0))
     for name in list(KERNELS) + ['blur_sauvola.' + v for v in VARIANTS]:
         info = cudabuild.BUILD_INFO[name]
@@ -214,7 +274,7 @@ def phase_build():
 
 def phase_kernels(pages, wds):
     import torch
-    from archive_pdf_tools_tpu.mrc.hocr_prep import prepare_lines
+    from archive_pdf_tools_tpu_torch.mrc.hocr_prep import prepare_lines
     from archive_pdf_tools_tpu_torch.mrc import decompose as D
     from archive_pdf_tools_tpu_torch.ops import (optimise_cuda, denoise_cuda,
                                                  threshold_cuda, lines_cuda,
@@ -250,7 +310,8 @@ def phase_kernels(pages, wds):
     for name, img, taps in cases:
         k3.append(_compare(
             name, lambda: threshold_cuda.blur_sauvola(img, taps, WINDOW),
-            lambda: threshold_cuda.blur_sauvola_plain(img, taps, WINDOW)))
+            lambda: threshold_cuda.blur_sauvola_plain(img, taps, WINDOW),
+            _nbytes((img, taps)), _k3_ops(taps)))
     results['blur_sauvola'] = (k3[1], k3)
     gmask = threshold_cuda.blur_sauvola(gray, cases[1][2], WINDOW)
 
@@ -264,7 +325,8 @@ def phase_kernels(pages, wds):
     k4 = _compare('line_sauvola (hOCR lines)',
                   lambda: lines_cuda.line_thresholds(gray, lines, WINDOW),
                   lambda: lines_cuda.line_thresholds_plain(gray, lines,
-                                                           WINDOW))
+                                                           WINDOW),
+                  lines.total, K4_OPS)
     results['line_sauvola'] = (k4, [k4])
     ct, ci, counts = lines_cuda.line_thresholds(gray, lines, WINDOW)
     sel = D.line_selector(ct, ci, counts, lines)
@@ -273,7 +335,8 @@ def phase_kernels(pages, wds):
     k5 = [_compare('paste (select_lines selector)',
                    lambda: paste_cuda.paste_lines(ct, ci, lines, sel, gmask),
                    lambda: paste_cuda.paste_lines_plain(ct, ci, lines, sel,
-                                                        gmask))]
+                                                        gmask),
+                   _selected_bytes(lines, sel) + _nbytes(gmask), K5_OPS)]
     # adversarial: every box grown 40 rows down, so neighbours overlap,
     # with a random selector
     grown = lines.boxes.copy()
@@ -284,14 +347,15 @@ def phase_kernels(pages, wds):
     k5.append(_compare(
         'paste (overlaps, random selector)',
         lambda: paste_cuda.paste_lines(gct, gci, glines, gsel, gmask),
-        lambda: paste_cuda.paste_lines_plain(gct, gci, glines, gsel, gmask)))
+        lambda: paste_cuda.paste_lines_plain(gct, gci, glines, gsel, gmask),
+        _selected_bytes(glines, gsel) + _nbytes(gmask), K5_OPS))
     results['paste'] = (k5[0], k5)
     del ct, ci, gct, gci
 
     mask = threshold_cuda.blur_sauvola(gray, cases[1][2], WINDOW)
     r = _compare('despeckle (sauvola mask)',
                  lambda: denoise_cuda.fast_mask_denoise(mask, 4, 2),
-                 lambda: den_plain(mask, 4, 2))
+                 lambda: den_plain(mask, 4, 2), _nbytes(mask), K2_OPS)
     results['despeckle'] = (r, [r])
     mask = denoise_cuda.fast_mask_denoise(mask, 4, 2)
     inv = ~mask
@@ -303,7 +367,8 @@ def phase_kernels(pages, wds):
                             ('optimise rgb bg n=10', inv, rgb, 10)):
         k1.append(_compare(name,
                            lambda: optimise_cuda.optimise(m, img, n),
-                           lambda: opt_plain(m, img, n)))
+                           lambda: opt_plain(m, img, n), _nbytes((m, img)),
+                           K1_OPS))
     results['optimise'] = (k1[1], k1)
 
     # the JPEG2000 transform of what -J tpu gives it: the fills' layers
@@ -323,7 +388,26 @@ def _compare_dwt97(name, x, levels=JP2_LEVELS, delta=JP2_DELTA):
     from archive_pdf_tools_tpu_torch.ops.dwt97 import dwt97 as dwt_plain
     return _compare('%s L=%d' % (name, levels),
                     lambda: _flat_bands(dwt97_cuda.dwt97(x, levels, delta)),
-                    lambda: _flat_bands(dwt_plain(x, levels, delta)))
+                    lambda: _flat_bands(dwt_plain(x, levels, delta)),
+                    _nbytes(x), DWT_OPS)
+
+
+# phase 2b's edge cases of K1 (batch, rows, columns, channels, n, share of
+# mask pixels) and K2 (batch, rows, columns, share of ink);
+# tests/test_torch_ops.py holds the plain versions to the JAX package at
+# the small ones
+K1_EDGES = ((2, 3, 31, 1, 3, 0.3), (1, 4, 19, 3, 10, 0.3),
+            (2, 5, 6, 1, 3, 0.3), (1, 2, 70, 3, 1, 0.3),
+            (1, 97, 301, 3, 1, 0.3), (2, 64, 65, 3, 10, 0.3),
+            (1, 40, 33, 1, 3, 1.0), (1, 40, 33, 3, 10, 0.0),
+            (1, 40, 33, 3, 3, 1.0), (1, 300, 1030, 3, 3, 0.3),
+            (1, 120, 2551, 3, 10, 0.3), (1, 30, 5100, 1, 10, 0.3),
+            (1, 16, 7000, 1, 3, 0.3))
+K2_EDGES = ((2, 4, 40, 0.5), (1, 3, 37, 0.5), (2, 50, 4, 0.5),
+            (1, 97, 301, 0.3), (1, 97, 301, 0.5), (1, 97, 301, 0.7),
+            (2, 300, 1030, 0.3), (2, 300, 1030, 0.5), (2, 300, 1030, 0.7),
+            (1, 40, 33, 1.0), (1, 40, 33, 0.0), (1, 257, 2551, 0.5),
+            (1, 64, 9000, 0.5), (1, 16, 32768, 0.5))
 
 
 def _stroke_page(rng, h, w):
@@ -388,6 +472,59 @@ def phase_odd_shapes():
                              optimise_cuda.optimise(m, im, n),
                              opt_plain(m, im, n))
         n_cases += 5
+
+    # the redesigned K1 and K2 at their edges: widths off the warp and
+    # word grain and below 2n+1 columns, fewer than 5 rows, masks all set
+    # and all clear, the despeckle on uniform noise at 30/50/70% ink (long
+    # runs of every kind of column), pages up to each kernel's widest
+    for b, h, w, ink in K2_EDGES:
+        mask = torch.from_numpy(rng.random((b, h, w)) < ink).to(dev)
+        _check_equal('despeckle at %s, %d%% ink' % ((b, h, w), 100 * ink),
+                     denoise_cuda.fast_mask_denoise(mask, 4, 2),
+                     den_plain(mask, 4, 2))
+        n_cases += 1
+    for b, h, w, c, n, ink in K1_EDGES:
+        mask = torch.from_numpy(rng.random((b, h, w)) < ink).to(dev)
+        img = torch.from_numpy(rng.integers(
+            0, 256, (b, h, w) + ((c,) if c > 1 else ()),
+            dtype=np.uint8)).to(dev)
+        _check_equal('optimise at %s n=%d, %d%% mask'
+                     % (tuple(img.shape), n, 100 * ink),
+                     optimise_cuda.optimise(mask, img, n),
+                     opt_plain(mask, img, n))
+        n_cases += 1
+    # K1 rows wider than one CTA's shared memory, split over a cluster of
+    # CTAs: the widest one-CTA strip and one column more, 19,370 columns
+    # (timed), the widest row the wrapper takes, and one column more,
+    # which it refuses
+    for n in (3, 10):
+        wmax = optimise_cuda.max_width(n)
+        one = wmax // optimise_cuda.MAX_CLUSTER
+        for b, h, w, c in ((1, 64, one, 1), (1, 64, one + 1, 3),
+                           (2, 400, 19370, 1), (1, 400, 19370, 3),
+                           (1, 16, wmax, 1)):
+            mask = torch.from_numpy(rng.random((b, h, w)) < 0.3).to(dev)
+            img = torch.from_numpy(rng.integers(
+                0, 256, (b, h, w) + ((c,) if c > 1 else ()),
+                dtype=np.uint8)).to(dev)
+            what = 'optimise %s n=%d, %d CTAs a row' % (
+                tuple(img.shape), n, optimise_cuda.strips(w, n))
+            if w == 19370:
+                _compare(what, lambda: optimise_cuda.optimise(mask, img, n),
+                         lambda: opt_plain(mask, img, n),
+                         _nbytes((mask, img)), K1_OPS)
+            else:
+                _check_equal(what, optimise_cuda.optimise(mask, img, n),
+                             opt_plain(mask, img, n))
+            n_cases += 1
+        wide = torch.zeros((1, 2, wmax + 1), dtype=torch.bool, device=dev)
+        try:
+            optimise_cuda.optimise(wide, wide.to(torch.uint8), n)
+        except ValueError:
+            pass
+        else:
+            raise SystemExit('FAIL: optimise took %d columns at n=%d, past '
+                             'its limit' % (wmax + 1, n))
 
     # K3 where the window sum of squares passes 2^31 (dpi >= 728)
     bright = torch.from_numpy(np.stack([_bright_page(rng, 520, 640)
@@ -495,7 +632,7 @@ def _run_cli(args, out, insize, n_pages, need):
     """One recode_pdf_torch CLI run on the card; its output must pass the
     PDF/A validator and the launch counts of that run reach ``need``.
     Returns the counts."""
-    from archive_pdf_tools_tpu.validators import validate_pdfa  # jax-free
+    from archive_pdf_tools_tpu_torch.validators import validate_pdfa
     from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
     counters = {name: getattr(_wrapper_module(name), KERNELS[name][1])
                 for name in KERNELS}
@@ -541,9 +678,9 @@ def check_jpx(pdf_path):
     last 4), as ``validate_pdfa(strict_jpx_decode=...)`` checks."""
     import io
     from PIL import Image
-    from archive_pdf_tools_tpu.pdf.reader import PdfReader
-    from archive_pdf_tools_tpu.validators.jp2_check import validate_jp2
-    from archive_pdf_tools_tpu.validators.jp2t1_check import decode_block
+    from archive_pdf_tools_tpu_torch.pdf.reader import PdfReader
+    from archive_pdf_tools_tpu_torch.validators.jp2_check import validate_jp2
+    from archive_pdf_tools_tpu_torch.validators.jp2t1_check import decode_block
     from archive_pdf_tools_tpu_torch.codecs import jp2host
     lib = jp2host._get_lib()
     rd = PdfReader(pdf_path)
@@ -640,7 +777,7 @@ def phase_small_from_pdf(tmp, need):
     """--from-pdf without -T on the small book's own MRC PDF (two images
     and a text layer a page): hOCR from its text layer, each page
     rendered whole."""
-    from archive_pdf_tools_tpu.pdf.reader import PdfReader
+    from archive_pdf_tools_tpu_torch.pdf.reader import PdfReader
     src = os.path.join(tmp, 'small_card.pdf')
     out = os.path.join(tmp, 'small_frompdf.pdf')
     print('phase 3c: recode_pdf_torch --from-pdf without -T, the 3-page '
@@ -654,7 +791,7 @@ def phase_small_from_pdf(tmp, need):
 def phase_scandata(tmp, need):
     """The small book with --scandata-file: a skipped page, page labels."""
     import pathlib
-    from archive_pdf_tools_tpu.pdf.reader import PdfReader
+    from archive_pdf_tools_tpu_torch.pdf.reader import PdfReader
     sd = _tests_module('fixtures').make_scandata(
         pathlib.Path(tmp), 3, dpi=100, skip=(1,), numbers=['1', None, '3'])
     glob_pat = os.path.join(tmp, 'small_*.png')
@@ -688,7 +825,8 @@ def phase_ablate(pages):
         results[v] = _compare(
             'blur_sauvola_ablate %s' % v,
             lambda: A.blur_sauvola_ablate(gray, taps, WINDOW, v),
-            lambda: A.blur_sauvola_ablate_plain(gray, taps, WINDOW, v))
+            lambda: A.blur_sauvola_ablate_plain(gray, taps, WINDOW, v),
+            _nbytes((gray, taps)), _k3_ops(taps))
     del gray
     print('phase 2c: python -m archive_pdf_tools_tpu_torch.tools.'
           'threshold_ablate 2 1')
@@ -750,14 +888,17 @@ def main():
             'source': 'archive_pdf_tools_tpu_torch/csrc/%s.cu' % name,
             'replaces': KERNELS[name][2], 'launches': launches[name],
             'max_abs_err': max(c['max_abs_err'] for c in cases),
-            'ms': head['ms'], 'plain_ms': head['plain_ms']})
+            'ms': head['ms'], 'plain_ms': head['plain_ms'],
+            'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
+            'library_ms': None})
     for v, r in ablate.items():
         summary.append({
             'name': 'blur_sauvola_ablate.' + v, 'route': 'cuda',
             'source': 'archive_pdf_tools_tpu_torch/csrc/blur_sauvola.cu',
             'replaces': ABLATE, 'launches': ablate_launches[v],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-            'plain_ms': r['plain_ms']})
+            'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+            'bound_by': r['bound_by'], 'library_ms': None})
     print('chip_smoke wall time: %.1f s' % (time.time() - t_start))
     print(smi)
     print(json.dumps({'kernels': summary}))

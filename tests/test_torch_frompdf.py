@@ -27,6 +27,10 @@ from archive_pdf_tools_tpu.pdf.writer import Name, PdfWriter, Stream
 from archive_pdf_tools_tpu.validators import validate_pdfa
 
 import archive_pdf_tools_tpu_torch
+# the name the port's builder stamps (the port's const.PRODUCER), set to
+# the JAX one where the two outputs are compared byte for byte
+from archive_pdf_tools_tpu_torch.pdf import builder as port_builder
+from archive_pdf_tools_tpu_torch.pdf.reader import PdfReader as PortReader
 from archive_pdf_tools_tpu_torch.pipeline import recode as port_recode
 
 from tests.fixtures import (HOCR_TEMPLATE, make_book, render_book_page,
@@ -119,7 +123,7 @@ def _both(tmp_path, monkeypatch, src, hocr, **kw):
     port's Producer set to the JAX one."""
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
-    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     ours, ref = str(tmp_path / 'torch.pdf'), str(tmp_path / 'jax.pdf')
     res = archive_pdf_tools_tpu_torch.recode(
         from_pdf=src, hocr_file=hocr, out_pdf=ours, jbig2=True,
@@ -175,10 +179,11 @@ def test_decode_pdf_image_matches_jax(tmp_path, case):
     from archive_pdf_tools_tpu.pipeline.recode import \
         _decode_pdf_image as jax_decode
     d, data, pixels = _filter_case(case)
-    rd = PdfReader(_write_pdf(tmp_path / 'f.pdf',
-                              [[(d, data, (0, 0, 41, 30))]]))
+    path = _write_pdf(tmp_path / 'f.pdf', [[(d, data, (0, 0, 41, 30))]])
+    rd, prd = PdfReader(path), PortReader(path)
     (_, _, stream), = rd.page_images(0)
-    ours = port_recode._decode_pdf_image(rd, stream)
+    (_, _, pstream), = prd.page_images(0)
+    ours = port_recode._decode_pdf_image(prd, pstream)
     ref = jax_decode(rd, stream)
     assert ours.mode == ref.mode and ours.size == ref.size == (41, 30)
     np.testing.assert_array_equal(np.asarray(ours), np.asarray(ref))
@@ -201,7 +206,7 @@ def test_lossless_source_recodes_byte_identical_with_jax(tmp_path,
     with open(ours, 'rb') as a, open(ref, 'rb') as b:
         assert a.read() == b.read()
     # the two-image page was rendered back to its pixels
-    img = port_recode._load_page_image(PdfReader(src), None, 2, None,
+    img = port_recode._load_page_image(PortReader(src), None, 2, None,
                                        None, None, False, None)
     np.testing.assert_array_equal(np.asarray(img), pages[2])
 
@@ -219,11 +224,11 @@ def test_jpeg_mrc_source_with_jax(tmp_path, monkeypatch):
                           mask_compression='ccitt',
                           bg_compression_flags=['-S40'],
                           fg_compression_flags=['-S30'])
-    rd = PdfReader(src)
+    rd, prd = PdfReader(src), PortReader(src)
     for i in range(2):
         assert len(rd.page_images(i)) == 2
         args = (None, i, None, None, None, False, None)
-        ours = port_recode._load_page_image(rd, *args)
+        ours = port_recode._load_page_image(prd, *args)
         ref = jax_recode_mod._load_page_image(rd, *args)
         assert ours.mode == ref.mode
         np.testing.assert_array_equal(np.asarray(ours), np.asarray(ref))
@@ -258,7 +263,7 @@ def test_cli_from_pdf_without_hocr_file(tmp_path, monkeypatch):
     from archive_pdf_tools_tpu.cli.recode_pdf import main as jax_main
     from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
-    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     pages, hocr = _book(tmp_path, n_pages=2)
     for i, page in enumerate(pages):
         Image.fromarray(page).save(str(tmp_path / ('page_%04d.png' % i)))

@@ -127,6 +127,58 @@ def test_despeckle_matches_pallas_interpret():
     assert (fast_mask_denoise(_t(mask), 4, 2).numpy() == ref).all()
 
 
+# --- K1 and K2 at the edges chip_smoke.py phase 2b holds the kernels to ----
+# widths off the warp and word grain and below 2n+1 columns, fewer than 5
+# rows, masks all set and all clear, uniform noise at 30/50/70% ink
+
+K1_EDGES = [(2, 3, 31, 1, 3, 0.3), (1, 4, 19, 3, 10, 0.3),
+            (2, 5, 6, 1, 3, 0.3), (1, 2, 70, 3, 1, 0.3),
+            (1, 17, 45, 3, 1, 0.3), (2, 12, 65, 3, 10, 0.3),
+            (1, 20, 33, 1, 3, 1.0), (1, 20, 33, 3, 10, 0.0),
+            (1, 20, 33, 3, 3, 1.0)]
+
+
+@pytest.mark.parametrize('b,h,w,c,n,ink', K1_EDGES)
+def test_optimise_edges_match_jax(b, h, w, c, n, ink):
+    rng = np.random.default_rng(h * w + n)
+    mask = rng.random((b, h, w)) < ink
+    img = rng.integers(0, 256, (b, h, w) + ((c,) if c > 1 else ()),
+                       dtype=np.uint8)
+    got = optimise(_t(mask), _t(img), n).numpy()
+    assert (got == np.asarray(jax_optimise(mask, img, n))).all()
+
+
+@pytest.mark.parametrize('n', [1, 3, 10, 22])
+def test_optimise_kernel_layout_takes_wide_pages(n):
+    """The CUDA wrapper's split of a row over a cluster of CTAs: one CTA
+    up to the widest strip its shared memory holds, more past it, and
+    every width up to 19,370 columns (600-DPI A3 and wider) taken."""
+    from archive_pdf_tools_tpu_torch.ops import optimise_cuda as oc
+    wmax = oc.max_width(n)
+    one = wmax // oc.MAX_CLUSTER
+    assert wmax >= 19370
+    assert oc.strips(one, n) == 1 and oc.strips(one + 1, n) == 2
+    assert oc.strips(wmax, n) == oc.MAX_CLUSTER
+    assert oc.strips(wmax + 1, n) is None
+    for w in (1, 2550, 5100, 7000, 19370, wmax):
+        k = oc.strips(w, n)
+        q = oc.pitch(-(-w // k))
+        assert k * q >= w and q <= oc.COLS * oc.MAX_THREADS
+        assert oc.walk_smem(q, n) <= oc.SMEM
+
+
+K2_EDGES = [(2, 4, 40, 0.5), (1, 3, 37, 0.5), (2, 50, 4, 0.5),
+            (1, 40, 70, 0.3), (1, 40, 70, 0.5), (1, 40, 70, 0.7),
+            (1, 40, 33, 1.0), (1, 40, 33, 0.0)]
+
+
+@pytest.mark.parametrize('b,h,w,ink', K2_EDGES)
+def test_despeckle_edges_match_jax(b, h, w, ink):
+    mask = np.random.default_rng(h * w).random((b, h, w)) < ink
+    got = fast_mask_denoise(_t(mask), 4, 2).numpy()
+    assert (got == np.asarray(jax_denoise(mask, 4, 2))).all()
+
+
 # --- K3: blur + global Sauvola ----------------------------------------------
 
 def _identity(b, r):

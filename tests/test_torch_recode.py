@@ -20,6 +20,9 @@ from archive_pdf_tools_tpu.pdf.reader import PdfReader
 from archive_pdf_tools_tpu.validators import validate_pdfa
 
 import archive_pdf_tools_tpu_torch
+# the name the port's builder stamps (the port's const.PRODUCER), set to
+# the JAX one where the two outputs are compared byte for byte
+from archive_pdf_tools_tpu_torch.pdf import builder as port_builder
 from archive_pdf_tools_tpu_torch.pipeline import recode as port_recode
 
 from archive_pdf_tools_tpu_torch.inputs import hocr as port_hocr
@@ -70,7 +73,7 @@ def test_recode_byte_identical_with_jax(tmp_path, monkeypatch, mode,
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     from archive_pdf_tools_tpu_torch import recode
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
-    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     glob_pat, hocr_path = _no_word_book(tmp_path, mode=mode)
     ours, ref = tmp_path / 'torch.pdf', tmp_path / 'jax.pdf'
     kw = dict(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
@@ -86,7 +89,7 @@ def test_worded_book_byte_identical_with_jax(tmp_path, monkeypatch):
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     from archive_pdf_tools_tpu_torch import recode
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
-    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     glob_pat, hocr_path = _no_word_book(tmp_path, mode='RGB', words=True)
     ours, ref = tmp_path / 'torch.pdf', tmp_path / 'jax.pdf'
     kw = dict(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
@@ -109,7 +112,7 @@ def test_tpu_recode_byte_identical_with_jax(tmp_path, monkeypatch, n_pages,
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     from archive_pdf_tools_tpu_torch import recode
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
-    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=n_pages, mode=mode,
                                         words=True)
     ours, ref = tmp_path / 'torch.pdf', tmp_path / 'jax.pdf'
@@ -141,6 +144,15 @@ def test_tpu_bg_downsample_matches_jax_sizes(tmp_path):
     sizes = _image_sizes(ours)
     assert sizes == _image_sizes(ref)
     assert all((106, 138) in page for page in sizes)
+
+
+def test_reference_producer_is_the_jax_engine_name():
+    """The port swaps the JAX engine's name out of a carried-over XMP by
+    its own copy of that name."""
+    from archive_pdf_tools_tpu_torch import const
+    assert const.REFERENCE_PRODUCER == JAX_PRODUCER
+    assert const.PRODUCER == archive_pdf_tools_tpu_torch.PRODUCER
+    assert port_builder.PRODUCER == const.PRODUCER
 
 
 def test_producer_names_the_torch_engine(tmp_path, monkeypatch):
@@ -267,7 +279,7 @@ def test_unported_options_raise(tmp_path, monkeypatch, kw):
         return
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
-    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=2, words=True)
     args.update(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
                 jbig2=True)

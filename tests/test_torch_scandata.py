@@ -12,7 +12,9 @@ from archive_pdf_tools_tpu.pdf.reader import PdfReader
 from archive_pdf_tools_tpu.validators import validate_pdfa
 
 from archive_pdf_tools_tpu_torch.inputs import scandata as port_scandata
-from archive_pdf_tools_tpu_torch.pipeline import recode as port_recode
+# the name the port's builder stamps (the port's const.PRODUCER), set to
+# the JAX one where the two outputs are compared byte for byte
+from archive_pdf_tools_tpu_torch.pdf import builder as port_builder
 
 from tests.fixtures import (HOCR_TEMPLATE, make_scandata, render_book_page,
                             words_to_hocr_page)
@@ -78,7 +80,7 @@ def test_recode_with_scandata_byte_identical_with_jax(tmp_path,
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
     from archive_pdf_tools_tpu_torch import recode
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
-    monkeypatch.setattr(port_recode, 'PRODUCER', JAX_PRODUCER)
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     hocr = []
     for i in range(3):
         img, words = render_book_page(320, 416, seed=i, noise=0)
