@@ -23,7 +23,9 @@
 //     final bit rows back as bytes.  The walk reads and writes one word a
 //     thread a row, coalesced, and never reads back what it wrote.
 //   despeckle_kernel: one CTA per page walks the rows; thread t owns the
-//     32 columns of word t.  Shared memory holds the original rows y..y+3
+//     32 columns of word t (WPT = 1, rows up to 32,768 columns), or the 64
+//     of words 2t and 2t+1 (WPT = 2, up to 65,536; its map covers both
+//     words).  Shared memory holds the original rows y..y+3
 //     and the final rows y-4..y-1 as bit rows (rings of 4), and two tables
 //     of 4-column steps.  The original row y+4 is loaded into a register
 //     while row y resolves.  Per row:
@@ -122,12 +124,15 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
+// WPT: bit words a thread owns (1 up to 32,768 columns, 2 up to 65,536)
+template <int WPT>
 __global__ void __launch_bounds__(1024)
 despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                  int H, int W, int mincnt) {
   extern __shared__ __align__(16) uint32_t dsm[];
   const int T = blockDim.x;
-  const int stride = T + 2;                   // a zero word each side
+  const int TW = T * WPT;                     // words a bit row
+  const int stride = TW + 2;                  // a zero word each side
   uint32_t* orig = dsm + 1;                   // 4 bit rows, original
   uint32_t* fin = dsm + 4 * stride + 1;       // 4 bit rows, final
   uint32_t* agg = dsm + 8 * stride;           // a map per warp
@@ -137,8 +142,9 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const uint32_t* m = in + (size_t)blockIdx.x * H * T + t;
-  uint32_t* o = out + (size_t)blockIdx.x * H * T + t;
+  const int w0 = t * WPT;                     // this thread's first word
+  const uint32_t* m = in + (size_t)blockIdx.x * H * TW + w0;
+  uint32_t* o = out + (size_t)blockIdx.x * H * TW + w0;
 
   for (int i = t; i < 8 * stride; i += T) dsm[i] = 0u;
   // the tables: index a | b << 4 holds the kinds of 4 columns, column j
@@ -162,100 +168,124 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     lut_bf[idx] = bf;
     lut_nf[idx] = selector(bf);
   }
-  // interior columns 2..W-3 of this word
-  uint32_t interior = 0u;
-  for (int j = 0; j < 32; ++j) {
-    const int x = 32 * t + j;
-    interior |= (uint32_t)(x >= 2 && x < W - 2) << j;
+  // interior columns 2..W-3 of each word
+  uint32_t interior[WPT];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    interior[k] = 0u;
+    for (int j = 0; j < 32; ++j) {
+      const int x = 32 * (w0 + k) + j;
+      interior[k] |= (uint32_t)(x >= 2 && x < W - 2) << j;
+    }
   }
   __syncthreads();
-  for (int r = 0; r < 3 && r < H; ++r) orig[r * stride + t] = m[(size_t)r * T];
-  uint32_t pend = 3 < H ? m[(size_t)3 * T] : 0u;
+  uint32_t pend[WPT];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    for (int r = 0; r < 3 && r < H; ++r)
+      orig[r * stride + w0 + k] = m[(size_t)r * TW + k];
+    pend[k] = 3 < H ? m[(size_t)3 * TW + k] : 0u;
+  }
   __syncthreads();
 
   for (int y = 0; y < H; ++y) {
     const bool row_border = y < 2 || y >= H - 2;
     const uint32_t* r0 = orig + (y & 3) * stride;
-    const uint32_t own = r0[t];
-    uint32_t bc[4];                           // BOT + CUR, bit-sliced
-    if (!row_border) {
-      const uint32_t* r1 = orig + ((y + 1) & 3) * stride;
-      const uint32_t* r2 = orig + ((y + 2) & 3) * stride;
-      const uint32_t a0 = r1[t - 1], a1 = r1[t], a2 = r1[t + 1];
-      const uint32_t b0 = r2[t - 1], b1 = r2[t], b2 = r2[t + 1];
-      const uint32_t c2 = r0[t + 1];
-      uint32_t s1, s2, s3, s4, s5, k1, k2, k3, k4, k5;
-      fa(shifted(a0, a1, a2, -2), shifted(a0, a1, a2, -1), a1, s1, k1);
-      fa(shifted(a0, a1, a2, 1), shifted(a0, a1, a2, 2),
-         shifted(b0, b1, b2, -2), s2, k2);
-      fa(shifted(b0, b1, b2, -1), b1, shifted(b0, b1, b2, 1), s3, k3);
-      fa(shifted(b0, b1, b2, 2), shifted(0u, own, c2, 1),
-         shifted(0u, own, c2, 2), s4, k4);
-      fa(s1, s2, s3, s5, k5);
-      bc[0] = s5 ^ s4;
-      const uint32_t k6 = s5 & s4;
-      uint32_t u1, u2, d1, d2;
-      fa(k1, k2, k3, u1, d1);
-      fa(k4, k5, k6, u2, d2);
-      bc[1] = u1 ^ u2;
-      fa(d1, d2, u1 & u2, bc[2], bc[3]);      // BOT + CUR <= 12
+    uint32_t own[WPT], bc[WPT][4];            // BOT + CUR, bit-sliced
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+      const int wd = w0 + k;
+      own[k] = r0[wd];
+      if (!row_border) {
+        const uint32_t* r1 = orig + ((y + 1) & 3) * stride;
+        const uint32_t* r2 = orig + ((y + 2) & 3) * stride;
+        const uint32_t a0 = r1[wd - 1], a1 = r1[wd], a2 = r1[wd + 1];
+        const uint32_t b0 = r2[wd - 1], b1 = r2[wd], b2 = r2[wd + 1];
+        const uint32_t c2 = r0[wd + 1];
+        uint32_t s1, s2, s3, s4, s5, k1, k2, k3, k4, k5;
+        fa(shifted(a0, a1, a2, -2), shifted(a0, a1, a2, -1), a1, s1, k1);
+        fa(shifted(a0, a1, a2, 1), shifted(a0, a1, a2, 2),
+           shifted(b0, b1, b2, -2), s2, k2);
+        fa(shifted(b0, b1, b2, -1), b1, shifted(b0, b1, b2, 1), s3, k3);
+        fa(shifted(b0, b1, b2, 2), shifted(0u, own[k], c2, 1),
+           shifted(0u, own[k], c2, 2), s4, k4);
+        fa(s1, s2, s3, s5, k5);
+        bc[k][0] = s5 ^ s4;
+        const uint32_t k6 = s5 & s4;
+        uint32_t u1, u2, d1, d2;
+        fa(k1, k2, k3, u1, d1);
+        fa(k4, k5, k6, u2, d2);
+        bc[k][1] = u1 ^ u2;
+        fa(d1, d2, u1 & u2, bc[k][2], bc[k][3]);  // BOT + CUR <= 12
+      }
     }
     // original row y+3 into the ring; row y+4 on its way
-    orig[((y + 3) & 3) * stride + t] = pend;
-    pend = y + 4 < H ? m[(size_t)(y + 4) * T] : 0u;
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+      orig[((y + 3) & 3) * stride + w0 + k] = pend[k];
+      pend[k] = y + 4 < H ? m[(size_t)(y + 4) * TW + k] : 0u;
+    }
     __syncthreads();                          // A: final row y-1 is done
 
-    uint32_t bits = own;
-    if (!row_border) {
-      // TOP: the vertical count of rows y-1, y-2 is lo + 2 hi
-      const uint32_t* f1 = fin + ((y - 1) & 3) * stride;
-      const uint32_t* f2 = fin + ((y - 2) & 3) * stride;
-      const uint32_t g0 = f1[t - 1], g1 = f1[t], g2 = f1[t + 1];
-      const uint32_t h0 = f2[t - 1], h1 = f2[t], h2 = f2[t + 1];
-      const uint32_t l0 = g0 ^ h0, l1 = g1 ^ h1, l2 = g2 ^ h2;
-      const uint32_t q0 = g0 & h0, q1 = g1 & h1, q2 = g2 & h2;
-      uint32_t w1, e1, w3, e3, w4, e4, w5, e5, w6, e6;
-      fa(shifted(l0, l1, l2, -2), shifted(l0, l1, l2, -1), l1, w1, e1);
-      const uint32_t lp1 = shifted(l0, l1, l2, 1);
-      const uint32_t lp2 = shifted(l0, l1, l2, 2);
-      const uint32_t w2 = lp1 ^ lp2, e2 = lp1 & lp2;
-      const uint32_t top0 = w1 ^ w2;
-      const uint32_t e0 = w1 & w2;
-      fa(shifted(q0, q1, q2, -2), shifted(q0, q1, q2, -1), q1, w3, e3);
-      fa(shifted(q0, q1, q2, 1), shifted(q0, q1, q2, 2), e1, w4, e4);
-      fa(e2, e0, w3, w5, e5);
-      const uint32_t top1 = w4 ^ w5;
-      const uint32_t e7 = w4 & w5;
-      fa(e3, e4, e5, w6, e6);
-      const uint32_t top2 = w6 ^ e7;
-      const uint32_t top3 = e6 | (w6 & e7);   // TOP <= 10
-      // count = BOT + CUR + TOP, 5 bits
-      uint32_t c[5], cy;
-      c[0] = bc[0] ^ top0;
-      cy = bc[0] & top0;
-      fa(bc[1], top1, cy, c[1], cy);
-      fa(bc[2], top2, cy, c[2], cy);
-      fa(bc[3], top3, cy, c[3], c[4]);
-      const uint32_t one = count_ge(c, mincnt);
-      const uint32_t either = count_eq(c, mincnt - 1);
-      const uint32_t both = count_eq(c, mincnt - 2);
-      const uint32_t inner = own & interior;
-      const uint32_t ka = (inner & (one | both)) | (own & ~interior);
-      const uint32_t kb = inner & (either | both);
-      // the kinds of the 8 groups of 4 columns as table indices: bytes
-      // of ev are groups 0, 2, 4, 6, of od groups 1, 3, 5, 7
-      const uint32_t ev = (ka & 0x0F0F0F0Fu) | ((kb & 0x0F0F0F0Fu) << 4);
-      const uint32_t od = ((ka >> 4) & 0x0F0F0F0Fu) | (kb & 0xF0F0F0F0u);
-      uint32_t idx[8];
+    uint32_t bits[WPT];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        idx[2 * g] = (ev >> (8 * g)) & 0xFFu;
-        idx[2 * g + 1] = (od >> (8 * g)) & 0xFFu;
+    for (int k = 0; k < WPT; ++k) bits[k] = own[k];
+    if (!row_border) {
+      // the kinds of the 8 groups of 4 columns of each word, as table
+      // indices, in column order
+      uint32_t idx[8 * WPT];
+#pragma unroll
+      for (int k = 0; k < WPT; ++k) {
+        const int wd = w0 + k;
+        // TOP: the vertical count of rows y-1, y-2 is lo + 2 hi
+        const uint32_t* f1 = fin + ((y - 1) & 3) * stride;
+        const uint32_t* f2 = fin + ((y - 2) & 3) * stride;
+        const uint32_t g0 = f1[wd - 1], g1 = f1[wd], g2 = f1[wd + 1];
+        const uint32_t h0 = f2[wd - 1], h1 = f2[wd], h2 = f2[wd + 1];
+        const uint32_t l0 = g0 ^ h0, l1 = g1 ^ h1, l2 = g2 ^ h2;
+        const uint32_t q0 = g0 & h0, q1 = g1 & h1, q2 = g2 & h2;
+        uint32_t w1, e1, w3, e3, w4, e4, w5, e5, w6, e6;
+        fa(shifted(l0, l1, l2, -2), shifted(l0, l1, l2, -1), l1, w1, e1);
+        const uint32_t lp1 = shifted(l0, l1, l2, 1);
+        const uint32_t lp2 = shifted(l0, l1, l2, 2);
+        const uint32_t w2 = lp1 ^ lp2, e2 = lp1 & lp2;
+        const uint32_t top0 = w1 ^ w2;
+        const uint32_t e0 = w1 & w2;
+        fa(shifted(q0, q1, q2, -2), shifted(q0, q1, q2, -1), q1, w3, e3);
+        fa(shifted(q0, q1, q2, 1), shifted(q0, q1, q2, 2), e1, w4, e4);
+        fa(e2, e0, w3, w5, e5);
+        const uint32_t top1 = w4 ^ w5;
+        const uint32_t e7 = w4 & w5;
+        fa(e3, e4, e5, w6, e6);
+        const uint32_t top2 = w6 ^ e7;
+        const uint32_t top3 = e6 | (w6 & e7);   // TOP <= 10
+        // count = BOT + CUR + TOP, 5 bits
+        uint32_t c[5], cy;
+        c[0] = bc[k][0] ^ top0;
+        cy = bc[k][0] & top0;
+        fa(bc[k][1], top1, cy, c[1], cy);
+        fa(bc[k][2], top2, cy, c[2], cy);
+        fa(bc[k][3], top3, cy, c[3], c[4]);
+        const uint32_t one = count_ge(c, mincnt);
+        const uint32_t either = count_eq(c, mincnt - 1);
+        const uint32_t both = count_eq(c, mincnt - 2);
+        const uint32_t inner = own[k] & interior[k];
+        const uint32_t ka = (inner & (one | both)) | (own[k] & ~interior[k]);
+        const uint32_t kb = inner & (either | both);
+        // bytes of ev are groups 0, 2, 4, 6, of od groups 1, 3, 5, 7
+        const uint32_t ev = (ka & 0x0F0F0F0Fu) | ((kb & 0x0F0F0F0Fu) << 4);
+        const uint32_t od = ((ka >> 4) & 0x0F0F0F0Fu) | (kb & 0xF0F0F0F0u);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          idx[8 * k + 2 * g] = (ev >> (8 * g)) & 0xFFu;
+          idx[8 * k + 2 * g + 1] = (od >> (8 * g)) & 0xFFu;
+        }
       }
       // this thread's map, composed right to left
-      uint32_t map = lut_bf[idx[7]];
+      uint32_t map = lut_bf[idx[8 * WPT - 1]];
 #pragma unroll
-      for (int g = 6; g >= 0; --g) map = __byte_perm(map, 0, lut_nf[idx[g]]);
+      for (int g = 8 * WPT - 2; g >= 0; --g)
+        map = __byte_perm(map, 0, lut_nf[idx[g]]);
       // inclusive scan over the lanes: map := map o (lanes to the left)
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
@@ -268,40 +298,63 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
       uint32_t s = 0u;
       for (int w = 0; w < warp; ++w) s = (agg[w] >> (8 * s)) & 3u;
       if (lane > 0) s = (excl >> (8 * s)) & 3u;
-      bits = 0u;
 #pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const uint32_t rep = lut_rep[s * 256 + idx[g]];
-        bits |= (rep & 15u) << (4 * g);
-        s = rep >> 4;
+      for (int k = 0; k < WPT; ++k) {
+        bits[k] = 0u;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const uint32_t rep = lut_rep[s * 256 + idx[8 * k + g]];
+          bits[k] |= (rep & 15u) << (4 * g);
+          s = rep >> 4;
+        }
       }
     }
-    fin[(y & 3) * stride + t] = bits;
-    o[(size_t)y * T] = bits;
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+      fin[(y & 3) * stride + w0 + k] = bits[k];
+      o[(size_t)y * TW + k] = bits[k];
+    }
   }
 }
 
-// bits: 2 * B * H * T uint32 of scratch, T = walk threads
-// (ops/denoise_cuda.py sizes it the same way)
+template <int WPT>
+cudaError_t walk(const uint32_t* packed, uint32_t* fbits, int B, int H,
+                 int W, int T, int mincnt, cudaStream_t st) {
+  const size_t smem = (size_t)(8 * (T * WPT + 2) + 32 + 512) * 4 + 1024;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        despeckle_kernel<WPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  despeckle_kernel<WPT><<<B, T, smem, st>>>(packed, fbits, H, W, mincnt);
+  return cudaGetLastError();
+}
+
+// bits: 2 * B * H * TW uint32 of scratch, TW = T * WPT words a bit row,
+// T = walk threads, a multiple of 32 (ops/denoise_cuda.py sizes it the
+// same way)
 extern "C" int apt_despeckle(const void* mask, void* bits, void* out, int B,
                              int H, int W, int mincnt, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;     // nothing to despeckle
-  const int T = ((W + 31) / 32 + 31) / 32 * 32;
+  const int words = (W + 31) / 32;
+  const int wpt = words <= 1024 ? 1 : 2;
+  const int T = (words + 32 * wpt - 1) / (32 * wpt) * 32;
   if (T > 1024) return (int)cudaErrorInvalidValue;
+  const int TW = T * wpt;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * H;
   uint32_t* packed = (uint32_t*)bits;
-  uint32_t* fbits = packed + (size_t)rows * T;
+  uint32_t* fbits = packed + (size_t)rows * TW;
   pack_kernel<<<1024, 256, 0, st>>>((const uint8_t*)mask, packed, rows, W,
-                                    T);
+                                    TW);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)(8 * (T + 2) + 32 + 512) * 4 + 1024;
-  despeckle_kernel<<<B, T, smem, st>>>(packed, fbits, H, W, mincnt);
-  e = cudaGetLastError();
+  e = wpt == 1 ? walk<1>(packed, fbits, B, H, W, T, mincnt, st)
+               : walk<2>(packed, fbits, B, H, W, T, mincnt, st);
   if (e != cudaSuccess) return (int)e;
   const int gx = (W + 255) / 256;
   unpack_kernel<<<dim3(gx, rows < 4096 ? rows : 4096), 256, 0, st>>>(
-      fbits, (uint8_t*)out, rows, W, T);
+      fbits, (uint8_t*)out, rows, W, TW);
   return (int)cudaGetLastError();
 }

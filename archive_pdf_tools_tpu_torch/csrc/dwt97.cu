@@ -10,29 +10,39 @@
 //   low/high scalings and the quantiser's multiply are separate __fmul_rn;
 //   the build has -fmad=false, so nothing else fuses; the ICT is integer.
 //
-// What bounds it: in this first form, latency.  The data is a few
-//   operations a sample and a few passes over each level's active region:
-//   at batch 8 x 3300x2550 gray the float32 plane is 270 MB, so level 1
-//   moves ~2-3 GB, ~1 ms at 3.35 TB/s.  But the vertical lift below walks
-//   each column in one thread, a chain of ~13,000 load-compute-store steps
-//   at level 1 with only ~20 warps of columns a page in flight, and that
-//   chain, not the bytes, sets the time (PERF.md has the measured times).
-//   Tiling the columns into row strips with halos is the next step.
+// What bounds it: bytes.  A level reads its input once (uint8 pixels at
+//   level 1, the float32 LL of the level before after that) and writes
+//   the float32 LL and the three int32 detail bands once: at batch 8 x
+//   3300x2550 gray, level 1 moves ~0.35 GB, ~0.1 ms at 3.35 TB/s, and the
+//   four coarser levels a third of that together.  The lifting is ~10
+//   float operations a sample, far below the card's rate.
 //
-// Design, a simple first form:
-//   1. one elementwise pass: uint8 pixels -> float32 planes (B*ncomp, H, W);
-//   2. per level, on the active top-left region (hh, ww) of every plane
-//      (the Mallat layout of jp2dwt_quantize):
-//      - vertical: one thread per column, coalesced across x, walks its
-//        column: even rows then odd rows into the scratch plane, the four
-//        lifting steps in place there, then the scalings;
-//      - horizontal: one CTA per row, the row in shared memory (2550
-//        floats, 10 KB), evens then odds, the four lifting steps separated
-//        by __syncthreads, then low * 1/K and high * K packed back into the
-//        plane, low then high;
-//   3. per band, one pass: trunc(x * f32(1/step)) into the int32 output,
-//      laid out band by band (codestream order), component by component,
-//      page by page.
+// Design: one launch a level, over 2-D tiles of the level's active region
+//   (hh, ww) of every plane (the Mallat layout of jp2dwt_quantize).
+//   - A CTA owns an output tile of TY x TX samples (TY, TX even, from the
+//     wrapper) and loads it with a halo of kHalo = 4 samples each side,
+//     clamped to the region, into shared memory: at level 1 from the
+//     pixels, doing the DC shift or the ICT as it loads; after that from
+//     the LL plane the level before wrote.
+//   - Reach: a lift reads one sample each side, so after the four lifts a
+//     low (even) sample depends on the input 4 samples away and a high
+//     (odd) one on 3.  With 4 samples of halo every output of the tile
+//     sees the same operands as in a whole-row transform; the halo's own
+//     values go wrong at the tile's edge and are never written.
+//     (tests/test_torch_tiles.py stitches this tiling from the plain
+//     version, and shows that 3 samples of halo are not enough.)
+//   - At the region's true edges the neighbour index is clamped exactly as
+//     in the whole-row form (odd: min(i+1, ne-1); even: max(i-1, 0),
+//     min(i, no-1)), so every output sample is the same expression on the
+//     same operands, whatever the tiling.
+//   - The four vertical lifts on every loaded column, the scalings of the
+//     tile's output rows, the four horizontal lifts on those rows, each
+//     step separated by a barrier; then the writes: LL as float32 into
+//     the next level's input (a compact plane, two of them in turn), or,
+//     at the last level, quantised; HL, LH and HH quantised,
+//     trunc(x * f32(1/step)), straight into their int32 band slots.
+//   No row is held whole, so no width limit; no separate plane pass and no
+//   separate quantise pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,181 +63,204 @@ __constant__ int32_t kIct[3][3] = {{19595, 38470, 7471},
                                    {32768, -27439, -5329}};
 
 constexpr int kMaxBands = 3 * 32 + 1;
+constexpr int kHalo = 4;
+
+enum Source { kGray = 0, kRgb = 1, kPlane = 2 };
+
+struct Level {
+  long long off[4];   // first int32 of the LL (last level), HL, LH, HH band
+  float inv[4];       // f32(1/step) of those bands
+  int hh, ww;         // the active region this level transforms
+  int in_stride;      // row pitch of the input
+  long long in_plane; // plane pitch of the input (pixels or floats)
+  int last;           // LL is quantised (else written as float32)
+};
 
 __device__ __forceinline__ float lift(float coef, float a, float b,
                                       float d) {
   return __fmaf_rn(coef, __fadd_rn(a, b), d);
 }
 
-__global__ void to_planes(const uint8_t* __restrict__ img,
-                          float* __restrict__ planes, long npix, int B,
-                          int ncomp) {
-  const long total = (long)B * npix;
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    const long b = i / npix, p = i - b * npix;
-    if (ncomp == 1) {
-      planes[i] = __fsub_rn((float)img[i], 128.0f);
-    } else {
-      const uint8_t* px = img + 3 * i;
-      const int32_t r = (int32_t)px[0] - 128, g = (int32_t)px[1] - 128,
-                    bl = (int32_t)px[2] - 128;
-      for (int c = 0; c < 3; ++c) {
-        const int32_t s = kIct[c][0] * r + kIct[c][1] * g + kIct[c][2] * bl;
-        planes[(b * 3 + c) * npix + p] = __fmul_rn((float)s, 0x1p-16f);
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// One lifting step along the tile's rows (dim 0) or columns (dim 1): the
+// samples of global parity `par` get coef * (left + right).  Odd samples
+// take their even neighbours p-1 and min(p+1, 2ne-2); even samples their
+// odd neighbours max(p-1, 1) and min(p+1, 2no-1) (the whole-row clamps);
+// a neighbour past the loaded span is only ever needed by halo samples,
+// which are never written, and is clamped into the span.
+// Along rows: rows [0, n) of the span, every column in [0, m).
+// Along columns: columns [0, n), rows [m0, m).
+template <int DIM>
+__device__ __forceinline__ void lift_step(float* t, int P, int s0, int n,
+                                          int m0, int m, int par, int lim,
+                                          float coef) {
+  const int first = (par - s0) & 1;
+  if (DIM == 0) {
+    for (int r = first + 2 * (int)threadIdx.y; r < n;
+         r += 2 * (int)blockDim.y) {
+      const int g = s0 + r;
+      const int a = clampi((par ? g - 1 : max(g - 1, 1)) - s0, 0, n - 1);
+      const int b = clampi(min(g + 1, lim) - s0, 0, n - 1);
+      for (int c = threadIdx.x; c < m; c += blockDim.x)
+        t[r * P + c] = lift(coef, t[a * P + c], t[b * P + c], t[r * P + c]);
+    }
+  } else {
+    for (int r = m0 + threadIdx.y; r < m; r += blockDim.y) {
+      float* row = t + r * P;
+      for (int c = first + 2 * (int)threadIdx.x; c < n;
+           c += 2 * (int)blockDim.x) {
+        const int g = s0 + c;
+        const int a = clampi((par ? g - 1 : max(g - 1, 1)) - s0, 0, n - 1);
+        const int b = clampi(min(g + 1, lim) - s0, 0, n - 1);
+        row[c] = lift(coef, row[a], row[b], row[c]);
       }
     }
   }
 }
 
-// Column x of plane p, rows [0, hh): src (stride W) -> dst (stride W),
-// packed low rows [0, ne) then high rows [ne, hh).
-__global__ void lift_vertical(const float* __restrict__ src,
-                              float* __restrict__ dst, int H, int W,
-                              int hh, int ww) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= ww) return;
-  const size_t off = (size_t)blockIdx.y * H * W + x;
-  const float* s = src + off;
-  float* d = dst + off;
-  const int ne = (hh + 1) / 2, no = hh / 2;
-  for (int i = 0; i < ne; ++i) d[(size_t)i * W] = s[(size_t)(2 * i) * W];
-  for (int i = 0; i < no; ++i)
-    d[(size_t)(ne + i) * W] = s[(size_t)(2 * i + 1) * W];
-  float* ev = d;
-  float* od = d + (size_t)ne * W;
-#define EV(i) ev[(size_t)(i) * W]
-#define OD(i) od[(size_t)(i) * W]
-  if (no > 0) {
-    for (int i = 0; i < no; ++i)
-      OD(i) = lift(kAlpha, EV(i), EV(i + 1 < ne ? i + 1 : ne - 1), OD(i));
-    for (int i = 0; i < ne; ++i)
-      EV(i) = lift(kBeta, OD(i > 0 ? i - 1 : 0), OD(i < no ? i : no - 1),
-                   EV(i));
-    for (int i = 0; i < no; ++i)
-      OD(i) = lift(kGamma, EV(i), EV(i + 1 < ne ? i + 1 : ne - 1), OD(i));
-    for (int i = 0; i < ne; ++i)
-      EV(i) = lift(kDelta, OD(i > 0 ? i - 1 : 0), OD(i < no ? i : no - 1),
-                   EV(i));
-  }
-  for (int i = 0; i < ne; ++i) EV(i) = __fmul_rn(EV(i), kInvK);
-  for (int i = 0; i < no; ++i) OD(i) = __fmul_rn(OD(i), kK);
-#undef EV
-#undef OD
-}
-
-// Row y of plane p, columns [0, ww): src -> dst, low then high.
-__global__ void lift_horizontal(const float* __restrict__ src,
-                                float* __restrict__ dst, int H, int W,
-                                int ww) {
-  extern __shared__ float row[];
-  const size_t off = ((size_t)blockIdx.y * H + blockIdx.x) * W;
-  const float* s = src + off;
-  float* d = dst + off;
-  const int ne = (ww + 1) / 2, no = ww / 2;
-  float* ev = row;
-  float* od = row + ne;
-  for (int i = threadIdx.x; i < ne; i += blockDim.x) ev[i] = s[2 * i];
-  for (int i = threadIdx.x; i < no; i += blockDim.x) od[i] = s[2 * i + 1];
+template <int DIM>
+__device__ __forceinline__ void lift_all(float* t, int P, int s0, int n,
+                                         int m0, int m, int len) {
+  const int ne = (len + 1) / 2, no = len / 2;
+  lift_step<DIM>(t, P, s0, n, m0, m, 1, 2 * ne - 2, kAlpha);
   __syncthreads();
-  if (no > 0) {
-    for (int i = threadIdx.x; i < no; i += blockDim.x)
-      od[i] = lift(kAlpha, ev[i], ev[i + 1 < ne ? i + 1 : ne - 1], od[i]);
-    __syncthreads();
-    for (int i = threadIdx.x; i < ne; i += blockDim.x)
-      ev[i] = lift(kBeta, od[i > 0 ? i - 1 : 0], od[i < no ? i : no - 1],
-                   ev[i]);
-    __syncthreads();
-    for (int i = threadIdx.x; i < no; i += blockDim.x)
-      od[i] = lift(kGamma, ev[i], ev[i + 1 < ne ? i + 1 : ne - 1], od[i]);
-    __syncthreads();
-    for (int i = threadIdx.x; i < ne; i += blockDim.x)
-      ev[i] = lift(kDelta, od[i > 0 ? i - 1 : 0], od[i < no ? i : no - 1],
-                   ev[i]);
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < ne; i += blockDim.x)
-    d[i] = __fmul_rn(ev[i], kInvK);
-  for (int i = threadIdx.x; i < no; i += blockDim.x)
-    d[ne + i] = __fmul_rn(od[i], kK);
+  lift_step<DIM>(t, P, s0, n, m0, m, 0, 2 * no - 1, kBeta);
+  __syncthreads();
+  lift_step<DIM>(t, P, s0, n, m0, m, 1, 2 * ne - 2, kGamma);
+  __syncthreads();
+  lift_step<DIM>(t, P, s0, n, m0, m, 0, 2 * no - 1, kDelta);
+  __syncthreads();
 }
 
-// One band: rows [y0, y0+bh) x cols [x0, x0+bw) of every plane p = b *
-// ncomp + c -> out[c][b][y][x] (out at the band's offset).
-__global__ void quantize(const float* __restrict__ planes,
-                         int32_t* __restrict__ out, int H, int W, int B,
-                         int ncomp, int y0, int x0, int bh, int bw,
-                         float inv) {
-  const long per = (long)bh * bw;
-  const long total = per * B * ncomp;
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    const long cb = i / per, r = i - cb * per;     // cb = c * B + b
-    const int c = (int)(cb / B), b = (int)(cb - (long)c * B);
-    const int y = (int)(r / bw), x = (int)(r - (long)y * bw);
-    const float v = planes[((size_t)(b * ncomp + c) * H + y0 + y) * W +
-                           x0 + x];
-    out[i] = __float2int_rz(__fmul_rn(v, inv));
+// grid: (tiles across * ncomp, tiles down, B); block (32, 8)
+template <int SRC>
+__global__ void __launch_bounds__(256)
+dwt_level(const void* __restrict__ src, float* __restrict__ ll_out,
+          int32_t* __restrict__ out, Level L, int B, int ncomp, int ty,
+          int tx) {
+  extern __shared__ float tile[];
+  const int P = tx + 2 * kHalo;
+  const int c = blockIdx.x % ncomp;
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * ty, x0 = (blockIdx.x / ncomp) * tx;
+  const int hh = L.hh, ww = L.ww;
+  const int ys = max(y0 - kHalo, 0), ye = min(y0 + ty + kHalo, hh);
+  const int xs = max(x0 - kHalo, 0), xe = min(x0 + tx + kHalo, ww);
+  const int nr = ye - ys, nc = xe - xs;
+
+  for (int r = threadIdx.y; r < nr; r += blockDim.y) {
+    const size_t rowoff = (size_t)(ys + r) * L.in_stride + xs;
+    for (int cc = threadIdx.x; cc < nc; cc += blockDim.x) {
+      float v;
+      if (SRC == kGray) {
+        const uint8_t* img = (const uint8_t*)src + (size_t)b * L.in_plane;
+        v = __fsub_rn((float)img[rowoff + cc], 128.0f);
+      } else if (SRC == kRgb) {
+        const uint8_t* px = (const uint8_t*)src
+            + 3 * ((size_t)b * L.in_plane + rowoff + cc);
+        const int32_t rr = (int32_t)px[0] - 128, g = (int32_t)px[1] - 128,
+                      bl = (int32_t)px[2] - 128;
+        const int32_t s = kIct[c][0] * rr + kIct[c][1] * g + kIct[c][2] * bl;
+        v = __fmul_rn((float)s, 0x1p-16f);
+      } else {
+        v = ((const float*)src)[((size_t)b * ncomp + c) * L.in_plane + rowoff
+                                + cc];
+      }
+      tile[r * P + cc] = v;
+    }
+  }
+  __syncthreads();
+
+  if (hh > 1) lift_all<0>(tile, P, ys, nr, 0, nc, hh);
+  const int y1 = min(y0 + ty, hh), x1 = min(x0 + tx, ww);
+  const int r0 = y0 - ys, r1 = y1 - ys;
+  for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+    const float s = ((ys + r) & 1) ? kK : kInvK;
+    for (int cc = threadIdx.x; cc < nc; cc += blockDim.x)
+      tile[r * P + cc] = __fmul_rn(tile[r * P + cc], s);
+  }
+  __syncthreads();
+  if (ww > 1) lift_all<1>(tile, P, xs, nc, r0, r1, ww);
+
+  // the four bands of the tile: LL, HL (low rows, high columns), LH, HH
+  const int lh = (hh + 1) / 2, lw = (ww + 1) / 2;
+  for (int band = 0; band < 4; ++band) {
+    const int py = band >= 2, px = band & 1;
+    const int bh = py ? hh - lh : lh, bw = px ? ww - lw : lw;
+    const int ni = (y1 - y0 - py + 1) / 2, nj = (x1 - x0 - px + 1) / 2;
+    const float s = px ? kK : kInvK;
+    const bool to_float = band == 0 && !L.last;
+    for (int i = threadIdx.y; i < ni; i += blockDim.y) {
+      const int gy = y0 + py + 2 * i;
+      const float* row = tile + (gy - ys) * P - xs;
+      const size_t brow = (size_t)(gy >> 1) * bw;
+      for (int j = threadIdx.x; j < nj; j += blockDim.x) {
+        const int gx = x0 + px + 2 * j;
+        const float v = __fmul_rn(row[gx], s);
+        if (to_float) {
+          ll_out[((size_t)b * ncomp + c) * ((size_t)lh * lw) + brow
+                 + (gx >> 1)] = v;
+        } else {
+          out[L.off[band] + ((size_t)c * B + b) * ((size_t)bh * bw) + brow
+              + (gx >> 1)] = __float2int_rz(__fmul_rn(v, L.inv[band]));
+        }
+      }
+    }
   }
 }
 
-int grid_for(long n, int threads) {
-  long g = (n + threads - 1) / threads;
-  if (g > 132L * 32) g = 132L * 32;
-  return (int)(g > 0 ? g : 1);
+template <int SRC>
+cudaError_t launch(const void* src, float* ll_out, int32_t* out,
+                   const Level& L, int B, int ncomp, int ty, int tx,
+                   cudaStream_t st) {
+  const size_t smem = (size_t)(ty + 2 * kHalo) * (tx + 2 * kHalo)
+      * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dwt_level<SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((unsigned)(((L.ww + tx - 1) / tx) * ncomp),
+                  (unsigned)((L.hh + ty - 1) / ty), (unsigned)B);
+  dwt_level<SRC><<<grid, dim3(32, 8), smem, st>>>(src, ll_out, out, L, B,
+                                                  ncomp, ty, tx);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// img: uint8 (B, H, W) or (B, H, W, 3) contiguous; planes and scratch:
-// float32 (B * ncomp, H, W); inv: host array of the 3L+1 per-band f32
-// reciprocal steps in codestream order; out: int32, band by band in
-// codestream order, each band (ncomp, B, bh, bw).  Returns the first
-// cudaError_t.
-extern "C" int apt_dwt97(const void* img, void* planes, void* scratch,
-                         void* out, int B, int H, int W, int ncomp,
-                         int levels, const float* inv, void* stream_) {
+// img: uint8 (B, H, W) or (B, H, W, 3) contiguous; ll_a: float32 of
+// B * ncomp * ceil(H/2) * ceil(W/2) (levels >= 2), ll_b: of B * ncomp *
+// ceil(H/4) * ceil(W/4) (levels >= 3), the LL planes of odd and even
+// levels; inv: host array of the 3L+1 per-band f32 reciprocal steps in
+// codestream order; out: int32, band by band in codestream order, each
+// band (ncomp, B, bh, bw); ty, tx: the output tile, both even.  Returns
+// the first cudaError_t.
+extern "C" int apt_dwt97(const void* img, void* ll_a, void* ll_b, void* out,
+                         int B, int H, int W, int ncomp, int levels,
+                         const float* inv, int ty, int tx, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  if (levels < 1 || 3 * levels + 1 > kMaxBands) return (int)cudaErrorInvalidValue;
-  float* pl = (float*)planes;
-  float* sc = (float*)scratch;
-  const long npix = (long)H * W;
-  const int P = B * ncomp;
-  to_planes<<<grid_for((long)B * npix, 256), 256, 0, stream>>>(
-      (const uint8_t*)img, pl, npix, B, ncomp);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const size_t smem = (size_t)W * sizeof(float);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(lift_horizontal,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (levels < 1 || 3 * levels + 1 > kMaxBands || ty < 2 || tx < 2
+      || (ty & 1) || (tx & 1))
+    return (int)cudaErrorInvalidValue;
   int lws[33], lhs[33];
   lws[0] = W;
   lhs[0] = H;
   for (int l = 0; l < levels; ++l) {
-    const int ww = lws[l], hh = lhs[l];
-    dim3 vg((ww + 127) / 128, P);
-    lift_vertical<<<vg, 128, 0, stream>>>(pl, sc, H, W, hh, ww);
-    dim3 hg(hh, P);
-    lift_horizontal<<<hg, 256, (size_t)ww * sizeof(float), stream>>>(
-        sc, pl, H, W, ww);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    lws[l + 1] = (ww + 1) / 2;
-    lhs[l + 1] = (hh + 1) / 2;
+    lws[l + 1] = (lws[l] + 1) / 2;
+    lhs[l + 1] = (lhs[l] + 1) / 2;
   }
-
-  // bands in codestream order (jp2tpu._band_shapes): LL, then per level
-  // from the coarsest HL (rows [0, lh), cols [lw, pw)), LH (rows [lh, ph),
-  // cols [0, lw)), HH (rows [lh, ph), cols [lw, pw))
-  int32_t* o = (int32_t*)out;
-  long pos = 0;
+  // band offsets in codestream order (jp2tpu._band_shapes): LL, then per
+  // level from the coarsest HL (lh x (pw - lw)), LH ((ph - lh) x lw), HH
+  const long long P = (long long)B * ncomp;
+  long long off[kMaxBands];
+  long long pos = 0;
   for (int k = 0; k < 3 * levels + 1; ++k) {
-    int y0 = 0, x0 = 0, bh, bw;
+    long long bh, bw;
     if (k == 0) {
       bh = lhs[levels];
       bw = lws[levels];
@@ -237,17 +270,40 @@ extern "C" int apt_dwt97(const void* img, void* planes, void* scratch,
       const int lw = lws[lvl], lh = lhs[lvl];
       bh = kind == 0 ? lh : ph - lh;
       bw = kind == 1 ? lw : pw - lw;
-      y0 = kind == 0 ? 0 : lh;
-      x0 = kind == 1 ? 0 : lw;
     }
-    const long n = (long)bh * bw * P;
-    if (n > 0) {
-      quantize<<<grid_for(n, 256), 256, 0, stream>>>(
-          pl, o + pos, H, W, B, ncomp, y0, x0, bh, bw, inv[k]);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
+    off[k] = pos;
+    pos += bh * bw * P;
+  }
+
+  float* bufs[2] = {(float*)ll_a, (float*)ll_b};
+  int32_t* o = (int32_t*)out;
+  for (int l = 1; l <= levels; ++l) {
+    const int k = 1 + 3 * (levels - l);      // this level's HL
+    Level L;
+    L.off[0] = off[0];
+    L.inv[0] = inv[0];
+    for (int j = 1; j < 4; ++j) {
+      L.off[j] = off[k + j - 1];
+      L.inv[j] = inv[k + j - 1];
     }
-    pos += n;
+    L.hh = lhs[l - 1];
+    L.ww = lws[l - 1];
+    L.last = l == levels;
+    float* ll_out = bufs[(l - 1) & 1];
+    cudaError_t e;
+    if (l == 1) {
+      L.in_stride = W;
+      L.in_plane = (long long)H * W;
+      e = ncomp == 1
+          ? launch<kGray>(img, ll_out, o, L, B, ncomp, ty, tx, stream)
+          : launch<kRgb>(img, ll_out, o, L, B, ncomp, ty, tx, stream);
+    } else {
+      L.in_stride = L.ww;
+      L.in_plane = (long long)L.hh * L.ww;
+      e = launch<kPlane>(bufs[l & 1], ll_out, o, L, B, ncomp, ty, tx,
+                         stream);
+    }
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;
 }

@@ -18,7 +18,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {'apt_despeckle': [_P, _P, _P, _I, _I, _I, _I, _P]}
 
-MAX_WIDTH = 32 * 1024    # 32 columns a thread, one CTA of <= 1024 a page
+# one CTA of <= 1024 threads a page, each owning 1 or 2 words of 32
+# columns (the kernel's WPT)
+MAX_THREADS = 1024
+MAX_WPT = 2
+
+
+def walk_layout(w):
+    """(threads, words a thread) of the row walk for w columns: one word a
+    thread up to 32,768 columns, two after that; threads in whole warps."""
+    words = -(-w // 32)
+    wpt = 1 if words <= MAX_THREADS else MAX_WPT
+    return -(-words // (32 * wpt)) * 32, wpt
+
+
+def max_width():
+    """The widest page the kernel takes."""
+    return 32 * MAX_WPT * MAX_THREADS
 
 
 def fast_mask_denoise(mask, mincnt=4, n_size=2):
@@ -38,13 +54,14 @@ def fast_mask_denoise(mask, mincnt=4, n_size=2):
     if not mask.is_contiguous():
         raise ValueError('fast_mask_denoise: mask must be contiguous')
     b, h, w = mask.shape
-    if w > MAX_WIDTH:
+    if w > max_width():
         raise ValueError('fast_mask_denoise: width %d exceeds the kernel '
-                         'limit %d' % (w, MAX_WIDTH))
+                         'limit %d' % (w, max_width()))
     lib = cudabuild.load('despeckle', _SIGNATURES)
     out = torch.empty_like(mask)
     # the packed input and the final bit rows, a word per 32 columns
-    words = (-(-w // 32) + 31) // 32 * 32
+    threads, wpt = walk_layout(w)
+    words = threads * wpt
     bits = torch.empty((2 * b * h * words,), dtype=torch.int32,
                        device=mask.device)
     with torch.cuda.device(mask.device):

@@ -3,8 +3,11 @@ wrapper of the hand-written CUDA kernel ``csrc/dwt97.cu`` (the port of
 the JAX package's ``codecs/jp2tpu.py:_device_transform``), with its plain
 PyTorch version in ``ops/dwt97.py``.
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-or raises.  ``dwt97.launches`` counts the kernel launches.
+The kernel makes one launch a level over tiles of ``TILE`` output
+samples with a halo of ``HALO`` each side (``tiles`` is its plan), so a
+page of any width is taken.  A CPU tensor runs the plain version; a CUDA
+tensor launches the kernel or raises.  ``dwt97.launches`` counts the
+calls that launch it.
 """
 
 import ctypes
@@ -19,11 +22,22 @@ from .dwt97 import dwt97 as dwt97_plain
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {'apt_dwt97': [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             ctypes.POINTER(ctypes.c_float), _P]}
+                             ctypes.POINTER(ctypes.c_float), _I, _I, _P]}
 
-# one row of float32 in shared memory (227 KB a block)
-MAX_WIDTH = (227 * 1024) // 4
 MAX_LEVELS = 32
+# output rows and columns of a CTA's tile (even; the loaded tile, with
+# the halo, is 64 x 128 float32, 32 KB), and the halo: a low sample of a
+# 9/7 level reads the input 4 samples away, a high one 3
+TILE = (56, 120)
+HALO = 4
+
+
+def tiles(n, tile, halo=HALO):
+    """The kernel's tiling of one axis of a level's region of n samples:
+    (start, end, load_start, load_end) of each tile's outputs and of the
+    span it loads, clamped to [0, n)."""
+    return [(s, min(s + tile, n), max(s - halo, 0), min(s + tile + halo, n))
+            for s in range(0, n, tile)]
 
 
 def _check(imgs, levels):
@@ -53,9 +67,6 @@ def dwt97(imgs, levels, base_delta):
     if not imgs.is_contiguous():
         raise ValueError('dwt97: input must be contiguous')
     b, h, w = (int(s) for s in imgs.shape[:3])
-    if w > MAX_WIDTH:
-        raise ValueError('dwt97: width %d exceeds the kernel limit %d'
-                         % (w, MAX_WIDTH))
     ncomp = 1 if imgs.dim() == 3 else 3
     lib = cudabuild.load('dwt97', _SIGNATURES)
     inv = (ctypes.c_float * (3 * levels + 1))(
@@ -63,16 +74,18 @@ def dwt97(imgs, levels, base_delta):
           for m in band_layout(levels, float(base_delta))])
     shapes = _band_shapes(w, h, levels)
     sizes = [bh * bw * b for bh, bw in shapes]
-    planes = torch.empty((b * ncomp, h, w), dtype=torch.float32,
-                         device=imgs.device)
-    scratch = torch.empty_like(planes)
+    # the float32 LL planes of odd and of even levels, each level's input
+    # the next
+    ll = [torch.empty((b * ncomp * (-(-h // 2 ** k)) * (-(-w // 2 ** k))
+                       if levels > k else 0,), dtype=torch.float32,
+                      device=imgs.device) for k in (1, 2)]
     out = torch.empty(sum(sizes) * ncomp, dtype=torch.int32,
                       device=imgs.device)
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = lib.apt_dwt97(imgs.data_ptr(), planes.data_ptr(),
-                            scratch.data_ptr(), out.data_ptr(), b, h, w,
-                            ncomp, levels, inv, stream)
+        err = lib.apt_dwt97(imgs.data_ptr(), ll[0].data_ptr(),
+                            ll[1].data_ptr(), out.data_ptr(), b, h, w,
+                            ncomp, levels, inv, TILE[0], TILE[1], stream)
     cudabuild.check(err, 'dwt97')
     dwt97.launches += 1
     # out holds band by band (codestream order) the (ncomp, B, bh, bw)

@@ -10,8 +10,11 @@ crop row k of line i is page row t_i + k, cols [l_i, r_i).  A line of any
 height takes the same path: no height buckets, no tall-line host patch,
 no line capacity.
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-or raises.  ``line_thresholds.launches`` counts the kernel launches.
+The kernel walks each line in one CTA, or, for a line wider than one CTA
+keeps sums of (``MAX_LINE_WIDTH``), in column strips with halos
+(``line_strips``), so a line of any width is taken.  A CPU tensor
+runs the plain version; a CUDA tensor launches the kernel or raises.
+``line_thresholds.launches`` counts the calls that launch it.
 """
 
 import ctypes
@@ -25,14 +28,39 @@ from .sauvola import sauvola_constants, sauvola_mask
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {'apt_line_sauvola': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _F, _F, _P]}
+_SIGNATURES = {'apt_line_sauvola': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _F, _F, _P]}
 
-# column sums and their prefixes (four uint32 words a column) in at most
-# 227 KB of shared memory
+# the most columns a CTA keeps window sums of: column sums and their
+# prefixes (four uint32 words a column) in at most 227 KB of shared memory
 MAX_LINE_WIDTH = (227 * 1024) // 16 - 16
 # the window sum of squares (<= 65025 * window^2) is exact in uint32
 MAX_WINDOW = 255
+
+
+def line_strips(boxes, window, max_width=MAX_LINE_WIDTH):
+    """The kernel's CTAs: int32 (m, 3) rows (line, c0, c1), the output
+    columns [c0, c1) of each, in line order, and the most columns a CTA
+    keeps sums of.  A line up to max_width columns is one strip; a wider
+    one is cut into strips of max_width - (window - 1) columns, so that a
+    strip plus the window's reach, o-1 columns to its left and u to its
+    right (clamped to the line), is at most max_width."""
+    o, u = (window + 1) // 2, window // 2
+    step = max_width - (o - 1) - u
+    if step < 1:
+        raise ValueError('line_strips: %d columns cannot hold a window of '
+                         '%d' % (max_width, window))
+    boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
+    l, r = boxes[:, 2], boxes[:, 3]
+    cuts = np.where(r - l <= max_width, 1, -(-(r - l) // step))
+    line = np.repeat(np.arange(len(boxes)), cuts)
+    k = np.arange(len(line)) - np.repeat(np.cumsum(cuts) - cuts, cuts)
+    c0 = l[line] + k * step
+    c1 = np.where(cuts[line] == 1, r[line], np.minimum(c0 + step, r[line]))
+    c0 = np.where(cuts[line] == 1, l[line], c0)
+    loaded = (np.minimum(c1 + u, r[line]) - np.maximum(c0 - o + 1, l[line]))
+    return (np.stack([line, c0, c1], 1).astype(np.int32),
+            int(loaded.max(initial=0)))
 
 
 class RaggedLines:
@@ -125,15 +153,23 @@ def line_thresholds(gray, lines, window, k=0.1, R=128.0):
                          % gray.device)
     if not gray.is_contiguous():
         raise ValueError('line_thresholds: image must be contiguous')
-    max_wl = int((lines.boxes[:, 3] - lines.boxes[:, 2]).max(initial=0))
-    if max_wl > MAX_LINE_WIDTH:
-        raise ValueError('line_thresholds: a line %d wide exceeds the kernel '
-                         'limit %d' % (max_wl, MAX_LINE_WIDTH))
     out_t = torch.empty(lines.total, dtype=torch.uint8, device=gray.device)
     out_i = torch.empty_like(out_t)
-    counts = torch.empty((lines.n, 2), dtype=torch.int32, device=gray.device)
     if lines.n == 0:
-        return out_t, out_i, counts
+        return out_t, out_i, torch.empty((0, 2), dtype=torch.int32,
+                                         device=gray.device)
+    widest = int((lines.boxes[:, 3] - lines.boxes[:, 2]).max())
+    if widest <= MAX_LINE_WIDTH:
+        # a CTA a line, which writes the line's ink counts
+        strips, loaded = None, widest
+        counts = torch.empty((lines.n, 2), dtype=torch.int32,
+                             device=gray.device)
+    else:
+        # strips add their ink counts into their line's
+        strips, loaded = line_strips(lines.boxes, window)
+        strips = torch.from_numpy(strips).to(gray.device)
+        counts = torch.zeros((lines.n, 2), dtype=torch.int32,
+                             device=gray.device)
     km1, k2 = sauvola_constants(k, R)
     lib = cudabuild.load('line_sauvola', _SIGNATURES)
     b, h, w = gray.shape
@@ -141,9 +177,11 @@ def line_thresholds(gray, lines, window, k=0.1, R=128.0):
         stream = torch.cuda.current_stream(gray.device).cuda_stream
         err = lib.apt_line_sauvola(
             gray.data_ptr(), lines.table.data_ptr(),
+            None if strips is None else strips.data_ptr(),
             lines.dev_offsets.data_ptr(), out_t.data_ptr(),
-            out_i.data_ptr(), counts.data_ptr(), lines.n, h, w, max_wl,
-            int(window), float(km1), float(k2), stream)
+            out_i.data_ptr(), counts.data_ptr(),
+            lines.n if strips is None else int(strips.shape[0]), h, w,
+            loaded, int(window), float(km1), float(k2), stream)
     cudabuild.check(err, 'line_thresholds')
     line_thresholds.launches += 1
     return out_t, out_i, counts

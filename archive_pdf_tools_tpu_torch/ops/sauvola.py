@@ -47,22 +47,27 @@ def sauvola_constants(k, R=128.0):
     return np.float32(k32 - np.float32(1.0)), np.float32(k32 * k32 / r32 / r32)
 
 
-def _box_count(h, w, row_off, col_off, device):
+def sauvola_counts(h, w, window_width, window_height, device):
+    """int64 (h, w): the pixels of each clamped window of an h x w crop."""
+    row_off, col_off = _offsets(window_width, window_height)
+
     def count(n, off):
         i = torch.arange(n, device=device)
         return (i + off[1]).clamp(max=n) - (i + off[0]).clamp(min=0)
     return count(h, row_off)[:, None] * count(w, col_off)[None, :]
 
 
-def sauvola_mask(img, window_width, window_height, k, R=128.0):
-    """Batched Sauvola mask. img: uint8 (..., H, W) -> bool (True = ink)."""
-    h, w = img.shape[-2], img.shape[-1]
+def sauvola_sums(img, window_width, window_height):
+    """Exact clamped window sums of x and x^2 (int64) of uint8 (..., H, W)."""
     row_off, col_off = _offsets(window_width, window_height)
     x = img.to(torch.int64)
-    s = box_sum_2d(x, row_off, col_off)
-    s2 = box_sum_2d(x * x, row_off, col_off)
-    cnt = _box_count(h, w, row_off, col_off, img.device)
+    return box_sum_2d(x, row_off, col_off), box_sum_2d(x * x, row_off,
+                                                       col_off)
 
+
+def sauvola_test(img, s, s2, cnt, k, R=128.0):
+    """The ink test of every pixel of img from its window's sums and
+    count: integer mean and E[x^2] by floor division, then float32."""
     mean_i = s // cnt                       # C integer division (floor)
     var_i = s2 // cnt - mean_i * mean_i
 
@@ -77,3 +82,11 @@ def sauvola_mask(img, window_width, window_height, k, R=128.0):
     if k >= 0:
         return (t <= 0.0) | (t2 <= rhs)
     return (t <= 0.0) & (t2 >= rhs)
+
+
+def sauvola_mask(img, window_width, window_height, k, R=128.0):
+    """Batched Sauvola mask. img: uint8 (..., H, W) -> bool (True = ink)."""
+    s, s2 = sauvola_sums(img, window_width, window_height)
+    cnt = sauvola_counts(img.shape[-2], img.shape[-1], window_width,
+                         window_height, img.device)
+    return sauvola_test(img, s, s2, cnt, k, R)

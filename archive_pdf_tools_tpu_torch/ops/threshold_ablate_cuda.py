@@ -1,7 +1,7 @@
 """Ablation builds of the blur + Sauvola kernel (``csrc/blur_sauvola.cu``
 built with ``-DAPT_ABLATE=...``), their wrapper and their plain PyTorch
 versions.  They replace the TPU tool's ``tools/threshold_ablate.py:189``
-``_build(ablate)``, and time the parts of the four-launch design apart
+``_build(ablate)``, and time the parts of the two-launch design apart
 (``tools/threshold_ablate.py`` in this package).
 
 What each variant returns is the TPU tool's:
@@ -12,8 +12,9 @@ What each variant returns is the TPU tool's:
 - ``no_blur``: Sauvola on the raw page (mask);
 - ``no_emit``: the uint8 blurred page (no window sums, no test);
 - ``machinery``, ``u8ring``, ``passthru``: timing only, the uint8 page
-  itself (loads and stores without the arithmetic; the same with a
-  uint8 scratch; one copy launch).
+  itself (the two launches' loads, staging, barriers and stores without
+  the arithmetic; the same with the blur's vertical-pass tile held as
+  uint8 in shared memory; one copy launch).
 
 The plain versions use the shipped plain version's blur order
 (``threshold_cuda``: vertical, then horizontal, taps ascending, no
@@ -27,8 +28,8 @@ import collections
 import torch
 
 from ..utils import cudabuild
-from .sauvola import sauvola_mask, sauvola_constants
-from .threshold_cuda import (_SIGNATURES, _check, MAX_WIDTH, separable_blur,
+from .sauvola import sauvola_mask
+from .threshold_cuda import (_SIGNATURES, _check, launch, separable_blur,
                              vertical_pass, horizontal_pass, truncate_u8)
 
 VARIANTS = ('full', 'no_emit', 'no_hmac', 'no_vmac', 'no_blur',
@@ -78,34 +79,13 @@ def blur_sauvola_ablate(img, taps, window, variant, k=0.34, R=128.0):
                          % img.device)
     if not (img.is_contiguous() and taps.is_contiguous()):
         raise ValueError('blur_sauvola_ablate: inputs must be contiguous')
-    b, h, w = img.shape
-    if w > MAX_WIDTH:
-        raise ValueError('blur_sauvola_ablate: width %d exceeds the kernel '
-                         'limit %d' % (w, MAX_WIDTH))
-    radius = (taps.shape[1] - 1) // 2
-    km1, k2 = sauvola_constants(k, R)
     lib = build(variant)
     out = torch.empty(img.shape, dtype=torch.bool if variant in MASK_VARIANTS
                       else torch.uint8, device=img.device)
-    # scratch as the variant's launches use it (None: not touched)
-    vtmp = blur = scol = qcol = None
-    if variant != 'passthru':
-        vtmp = torch.empty(img.shape, dtype=torch.uint8 if variant == 'u8ring'
-                           else torch.float32, device=img.device)
-    if variant not in ('passthru', 'no_emit'):
-        blur = torch.empty_like(img)
-        scol = torch.empty(img.shape, dtype=torch.int32, device=img.device)
-        qcol = torch.empty_like(scol)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.apt_blur_sauvola(
-            img.data_ptr(), taps.data_ptr(), out.data_ptr(), ptr(vtmp),
-            ptr(blur), ptr(scol), ptr(qcol), b, h, w, radius, int(window),
-            float(km1), float(k2), stream)
+    # the uint8 blurred page, where the variant's launches use it
+    blur = None if variant in ('passthru', 'no_emit') \
+        else torch.empty_like(img)
+    err = launch(lib, img, taps, out, blur, window, k, R)
     cudabuild.check(err, 'blur_sauvola_ablate %s' % variant)
     blur_sauvola_ablate.launches[variant] += 1
     return out

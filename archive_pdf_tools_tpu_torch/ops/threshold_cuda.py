@@ -10,8 +10,12 @@ fixed order, shared with the kernel: vertical, then horizontal, taps
 ascending from 0, each product and sum rounded separately (shifted
 multiply-adds, never a convolution library, so TF32 never enters).
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-or raises.  ``blur_sauvola.launches`` counts the kernel launches.
+The kernel makes two launches: the blur over tiles of ``BLUR_TILE``
+pixels with a halo of r, into a uint8 page, then the Sauvola walk over
+column strips and runs of rows (``sauvola_plan``), so a page of any
+width is taken.  A CPU tensor runs the plain version; a CUDA tensor
+launches the kernel or raises.  ``blur_sauvola.launches`` counts the
+calls that launch it.
 """
 
 import ctypes
@@ -30,37 +34,61 @@ RADIUS_BUCKETS = (4, 8, 16, 48)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {'apt_blur_sauvola': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _F, _F, _P]}
+_SIGNATURES = {'apt_blur_sauvola': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                    _F, _I, _I, _P]}
 
-# two uint32 prefix rows per CTA in at most 227 KB of shared memory
-MAX_WIDTH = (227 * 1024) // 8 - 512
 # the window sum of squares (<= 65025 * window^2) is exact in uint32
 MAX_WINDOW = 255
+# output rows and columns of a CTA of the blur launch (fixed in the
+# kernel: 4 rows and 4 columns a thread of 8 x 32)
+BLUR_TILE = (32, 128)
+# columns a CTA of the Sauvola walk keeps sums of (its strip and the
+# window's halo, 4 a thread), and the rows it walks
+WALK_COLS = 1024
+WALK_ROWS = 96
 
 
-def vertical_pass(x, taps):
-    """f32 (B, H, W) -> its vertical MAC with per-page taps (B, 2r+1)."""
-    k = taps.shape[1]
-    r = (k - 1) // 2
-    h = x.shape[1]
-    xp = x[:, symmetric_index(h, r, r, x.device)]
-    v = torch.zeros_like(x)
-    for t in range(k):
+def sauvola_plan(window, walk_cols=WALK_COLS, walk_rows=WALK_ROWS):
+    """(strip, run): the output columns and rows of a CTA of the Sauvola
+    walk.  Its column sums span the strip plus the window's reach, o-1
+    columns to the left and u to the right (window - 1 together)."""
+    if walk_cols < window or walk_rows < 1:
+        raise ValueError('sauvola_plan: %d columns cannot hold a window of '
+                         '%d' % (walk_cols, window))
+    return walk_cols - (window - 1), walk_rows
+
+
+def vertical_mac(xp, taps, h):
+    """f32 (B, h + 2r, W), rows already extended by r each side -> the
+    vertical MAC with per-page taps (B, 2r+1), (B, h, W)."""
+    v = torch.zeros_like(xp[:, :h])
+    for t in range(taps.shape[1]):
         v = v + taps[:, t, None, None] * xp[:, t:t + h]
     return v
 
 
-def horizontal_pass(v, taps):
-    """f32 (B, H, W) -> its horizontal MAC with per-page taps."""
-    k = taps.shape[1]
-    r = (k - 1) // 2
-    w = v.shape[2]
-    vp = v[:, :, symmetric_index(w, r, r, v.device)]
-    o = torch.zeros_like(v)
-    for t in range(k):
+def horizontal_mac(vp, taps, w):
+    """f32 (B, H, w + 2r), columns already extended -> (B, H, w)."""
+    o = torch.zeros_like(vp[:, :, :w])
+    for t in range(taps.shape[1]):
         o = o + taps[:, t, None, None] * vp[:, :, t:t + w]
     return o
+
+
+def vertical_pass(x, taps):
+    """f32 (B, H, W) -> its vertical MAC with per-page taps (B, 2r+1),
+    symmetric borders."""
+    r = (taps.shape[1] - 1) // 2
+    h = x.shape[1]
+    return vertical_mac(x[:, symmetric_index(h, r, r, x.device)], taps, h)
+
+
+def horizontal_pass(v, taps):
+    """f32 (B, H, W) -> its horizontal MAC with per-page taps."""
+    r = (taps.shape[1] - 1) // 2
+    w = v.shape[2]
+    return horizontal_mac(v[:, :, symmetric_index(w, r, r, v.device)], taps,
+                          w)
 
 
 def truncate_u8(o):
@@ -99,6 +127,22 @@ def _check(img, taps, window, k):
         raise ValueError('blur_sauvola: k >= 0 only (global threshold)')
 
 
+def launch(lib, img, taps, out, blur, window, k, R):
+    """Call ``apt_blur_sauvola`` of lib (the shipped build or an ablation
+    build) on the current stream; blur: the uint8 page scratch or None.
+    Returns its cudaError_t."""
+    b, h, w = img.shape
+    km1, k2 = sauvola_constants(k, R)
+    strip, run = sauvola_plan(window)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        return lib.apt_blur_sauvola(
+            img.data_ptr(), taps.data_ptr(), out.data_ptr(),
+            None if blur is None else blur.data_ptr(), b, h, w,
+            (taps.shape[1] - 1) // 2, int(window), float(km1), float(k2),
+            strip, run, stream)
+
+
 def blur_sauvola(img, taps, window, k=0.34, R=128.0):
     """Blur each page of img with its taps, truncate to uint8 and return
     the bool (B, H, W) Sauvola ink mask (True = ink)."""
@@ -109,25 +153,9 @@ def blur_sauvola(img, taps, window, k=0.34, R=128.0):
         raise ValueError('blur_sauvola: unsupported device %s' % img.device)
     if not (img.is_contiguous() and taps.is_contiguous()):
         raise ValueError('blur_sauvola: inputs must be contiguous')
-    b, h, w = img.shape
-    if w > MAX_WIDTH:
-        raise ValueError('blur_sauvola: width %d exceeds the kernel limit '
-                         '%d' % (w, MAX_WIDTH))
-    radius = (taps.shape[1] - 1) // 2
-    km1, k2 = sauvola_constants(k, R)
     lib = cudabuild.load('blur_sauvola', _SIGNATURES)
     out = torch.empty(img.shape, dtype=torch.bool, device=img.device)
-    vtmp = torch.empty(img.shape, dtype=torch.float32, device=img.device)
-    blur = torch.empty_like(img)
-    scol = torch.empty(img.shape, dtype=torch.int32, device=img.device)
-    qcol = torch.empty_like(scol)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.apt_blur_sauvola(
-            img.data_ptr(), taps.data_ptr(), out.data_ptr(),
-            vtmp.data_ptr(), blur.data_ptr(), scol.data_ptr(),
-            qcol.data_ptr(), b, h, w, radius, int(window), float(km1),
-            float(k2), stream)
+    err = launch(lib, img, taps, out, torch.empty_like(img), window, k, R)
     cudabuild.check(err, 'blur_sauvola')
     blur_sauvola.launches += 1
     return out

@@ -5,12 +5,13 @@ Times the ablation builds of ``csrc/blur_sauvola.cu``
 off, so the differences localise the kernel's cost.
 
   full       the shipped kernel
-  no_emit    window sums and Sauvola test skipped (blur only)
+  no_emit    the Sauvola walk skipped (blur only)
   no_hmac    horizontal MAC skipped (vertical-only blur)
   no_vmac    vertical MAC skipped (horizontal-only blur)
   no_blur    both MACs skipped (Sauvola on the raw page)
-  machinery  the four launches' loads and stores only
-  u8ring     machinery with a uint8 scratch in place of the float32 one
+  machinery  the two launches' loads, staging, barriers and stores only
+  u8ring     machinery with the blur's vertical-pass tile held as uint8
+             in shared memory in place of float32
   passthru   one copy launch: the floor
 
 Pages as the TPU tool ``tools/threshold_ablate.py`` makes them: a seed-0

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source is compiled by ``nvcc`` into its own shared library with a
-plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
+plain C interface (headers it shares with other sources, ``csrc/*.cuh``,
+included by name) and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds, not minutes).  Builds go to ``build/`` beside the
 package (git-ignored), are written to a unique temp file and published
 with an atomic ``os.replace``, and are serialised by a per-path thread
@@ -55,8 +56,12 @@ def _nvcc():
 
 
 def _stale(so_path, src):
+    """Missing, or older than its source or a header of csrc/ (the
+    sources include them by their plain names)."""
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith('.cuh')]
     return (not os.path.exists(so_path)
-            or os.path.getmtime(so_path) < os.path.getmtime(src))
+            or os.path.getmtime(so_path) < max(map(os.path.getmtime, deps)))
 
 
 def _build(name, src, so_path, flags):

@@ -27,7 +27,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    page size, and the fill and the despeckle at their edges (widths off
    the warp and word grain and below 2n+1 columns, fewer than 5 rows,
    masks all set and all clear, noise at 30/50/70% ink, n=1, pages up to
-   each kernel's widest).  (2c) each ablation
+   each kernel's widest), and every kernel at its widest input: the
+   despeckle, the global threshold and the transform on pages of 47,104
+   columns (the fill's widest row at n=10, the card's page limit), the
+   despeckle also at the widest page it takes and refusing one column
+   more, the line threshold and the paste on a line of 47,104 columns
+   and on one just past a strip.  (2c) each ablation
    build of K3 against its plain version at the same batch, then one
    run of the ablation tool
    (``archive_pdf_tools_tpu_torch/tools/threshold_ablate.py``) at batch 2.
@@ -578,14 +583,17 @@ def phase_odd_shapes():
     n_cases += 1
 
     # the JPEG2000 transform: odd sizes, one-page batches, levels capped
-    # by the page (as the encoder caps them) and not
+    # by the page (as the encoder caps them) and not, sizes around the
+    # tile (56 x 120 outputs) and its halo
     from archive_pdf_tools_tpu_torch.codecs.jp2tpu import capped_levels
     from archive_pdf_tools_tpu_torch.ops import dwt97_cuda
     from archive_pdf_tools_tpu_torch.ops.dwt97 import dwt97 as dwt_plain
     for b, h, w, levels in ((1, 1, 1, 5), (2, 5, 7, 5), (1, 40, 33, 5),
                             (3, 97, 301, 5), (2, 300, 1031, 5),
                             (1, 3301, 2549, 5), (2, 64, 48, 5),
-                            (2, 33, 1030, 4), (1, 257, 193, 1)):
+                            (2, 33, 1030, 4), (1, 257, 193, 1),
+                            (1, 57, 121, 3), (1, 113, 244, 2),
+                            (2, 60, 124, 1)):
         lv = capped_levels(h, w, levels) if levels == 5 else levels
         for rgb in (False, True):
             img = torch.from_numpy(rng.integers(
@@ -597,8 +605,93 @@ def phase_odd_shapes():
                              _flat_bands(dwt97_cuda.dwt97(img, lv, delta)),
                              _flat_bands(dwt_plain(img, lv, delta)))
                 n_cases += 1
+    n_cases += phase_widest(rng)
     torch.cuda.synchronize()
     print('phase 2b: %d odd-shape cases, kernel == plain' % n_cases)
+
+
+# phase 2b's widest inputs: at least K1's widest row at n=10 (47,104
+# columns, 78 inches at 600 DPI), the card's page limit
+WIDEST = 47104
+
+
+def phase_widest(rng):
+    """K2, K3 and B7 on pages of WIDEST columns, K2 also at the widest
+    page it takes and refusing one column more; K4 on a line of WIDEST
+    columns and on one just past a strip (K5 pasting both): each kernel
+    == its plain version, the page and line kernels timed.  Few rows, so
+    the plain versions stay quick."""
+    import torch
+    from archive_pdf_tools_tpu_torch.mrc import decompose as D
+    from archive_pdf_tools_tpu_torch.ops import (denoise_cuda, threshold_cuda,
+                                                 lines_cuda, paste_cuda,
+                                                 dwt97_cuda)
+    from archive_pdf_tools_tpu_torch.ops.denoise import \
+        fast_mask_denoise_exact as den_plain
+    from archive_pdf_tools_tpu_torch.ops.dwt97 import dwt97 as dwt_plain
+    dev = torch.device(DEV)
+    n = 0
+    wmax = denoise_cuda.max_width()
+    for b, h, w in ((1, 16, 32769), (2, 32, WIDEST), (1, 16, wmax)):
+        mask = torch.from_numpy(rng.random((b, h, w)) < 0.5).to(dev)
+        what = 'despeckle %s' % ((b, h, w),)
+        if w == WIDEST:
+            _compare(what, lambda: denoise_cuda.fast_mask_denoise(mask, 4, 2),
+                     lambda: den_plain(mask, 4, 2), _nbytes(mask), K2_OPS)
+        else:
+            _check_equal(what, denoise_cuda.fast_mask_denoise(mask, 4, 2),
+                         den_plain(mask, 4, 2))
+        n += 1
+    wide = torch.zeros((1, 5, wmax + 1), dtype=torch.bool, device=dev)
+    try:
+        denoise_cuda.fast_mask_denoise(wide, 4, 2)
+    except ValueError:
+        pass
+    else:
+        raise SystemExit('FAIL: despeckle took %d columns, past its limit'
+                         % (wmax + 1))
+
+    page = np.stack([_stroke_page(rng, 48, WIDEST) for _ in range(2)])
+    gray = torch.from_numpy(page).to(dev)
+    sig = torch.from_numpy(rng.uniform(8, 40, 2).astype(np.float32)).to(dev)
+    for r, window in ((4, 101), (16, 255)):
+        taps = D.blur_weights_from_sigma(sig, r).contiguous()
+        _compare('blur_sauvola %s r=%d window %d' % (tuple(gray.shape), r,
+                                                     window),
+                 lambda: threshold_cuda.blur_sauvola(gray, taps, window),
+                 lambda: threshold_cuda.blur_sauvola_plain(gray, taps, window),
+                 _nbytes((gray, taps)), _k3_ops(taps))
+        n += 1
+    rgb = torch.from_numpy(np.stack([page, page // 2, 255 - page], -1)) \
+        .to(dev)
+    for x in (gray[:, :32].contiguous(), rgb[:1, :32].contiguous()):
+        _compare('dwt97 %s L=%d' % (tuple(x.shape), JP2_LEVELS),
+                 lambda: _flat_bands(dwt97_cuda.dwt97(x, JP2_LEVELS,
+                                                      JP2_DELTA)),
+                 lambda: _flat_bands(dwt_plain(x, JP2_LEVELS, JP2_DELTA)),
+                 _nbytes(x), DWT_OPS)
+        n += 1
+
+    # K4: one line across the whole widest page, one just past a strip
+    # (MAX_LINE_WIDTH + 1 columns, two CTAs), beside an ordinary one
+    past = lines_cuda.MAX_LINE_WIDTH + 1
+    boxes = [[4, 40, 0, WIDEST], [10, 22, 300, 300 + past],
+             [20, 44, 1000, 3550]]
+    lines = lines_cuda.RaggedLines(boxes, [0, 1, 1], 2, 48, WIDEST, dev)
+    strips, _ = lines_cuda.line_strips(lines.boxes, WINDOW)
+    print('  K4 widest lines: %d strips for lines of %s columns'
+          % (len(strips), [r - l for _t, _b, l, r in boxes]))
+    _compare('line_sauvola widest lines',
+             lambda: lines_cuda.line_thresholds(gray, lines, WINDOW),
+             lambda: lines_cuda.line_thresholds_plain(gray, lines, WINDOW),
+             lines.total, K4_OPS)
+    ct, ci, counts = lines_cuda.line_thresholds(gray, lines, WINDOW)
+    gmask = torch.from_numpy(rng.random((2, 48, WIDEST)) < 0.05).to(dev)
+    for sel in (np.array([1, 2, 1], np.int32), np.array([2, 1, 2], np.int32)):
+        _check_equal('paste widest lines',
+                     paste_cuda.paste_lines(ct, ci, lines, sel, gmask),
+                     paste_cuda.paste_lines_plain(ct, ci, lines, sel, gmask))
+    return n + 3
 
 
 def _write_hocr(tmp, name, pages, wds):

@@ -233,4 +233,5 @@ def test_pyproject_names_every_package_of_the_port():
             assert rel in packages, rel
     data = tool['package-data'][PORT]
     assert 'csrc/*.cu' in data and 'data/*.ttf' in data
+    assert 'csrc/*.cuh' in data           # headers the kernels include
     assert os.path.exists(os.path.join(ROOT, PORT, 'data', 'glyphless.ttf'))
