@@ -45,6 +45,25 @@
 //     4 at a time from a table of (state, 4 kinds) -> (4 bits, state).
 //   Composition is associative, so the result is the sequential one.
 //   Two barriers a row; batch 8 is 8 chains on 132 SMs, inherent.
+//   A page wider than one CTA holds (65,536 columns) is cut into S
+//   strips of at most 1,024 words, one CTA each, that run as a wavefront
+//   through device memory.  Row y of strip k needs (a) the final bits of
+//   row y at the two columns left of it, which are its start state, and
+//   (b) the final rows y-1 and y-2 two columns past each side (TOP).  So
+//   after each row a strip's first thread writes its first final word,
+//   and its last thread its last one, to a halo in device memory (two
+//   words a (page, strip, row)), each then publishing its row count in
+//   its own progress flag (release).  Before barrier A the first thread
+//   waits (acquire) for strip k-1's last word of row y-1 and the last
+//   thread for strip k+1's first word of row y-1, into the padding words
+//   of the final ring; before barrier B the first thread waits for strip
+//   k-1's last word of row y and hands its top two bits on as the start
+//   state.  The original rows' padding words come from the packed input.
+//   Strips wait on both neighbours, so every strip of a page is in one
+//   launch with all its CTAs resident (a cooperative launch, refused
+//   rather than hung; pages are chunked to fit): at one 1,024-thread CTA
+//   an SM that is 132 strips, 4,325,376 columns, 720 inches at 6,000
+//   DPI, far past PDF's 200-inch page.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,27 +143,59 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
-// WPT: bit words a thread owns (1 up to 32,768 columns, 2 up to 65,536)
-template <int WPT>
+__device__ __forceinline__ void flag_release(unsigned* f, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" :: "l"(f), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void flag_wait(const unsigned* f, unsigned v) {
+  unsigned got;
+  do {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(got)
+                 : "l"(f) : "memory");
+  } while (got < v);
+}
+
+// WPT: bit words a thread owns (1 up to 32,768 columns, 2 up to 65,536).
+// WAVE: the wavefront of S strips, CTA j walks strip j % S of page pg0 + j / S;
+// halo holds 2 words a (page, strip, row) (its first and last final
+// word), flags 2 a (page, strip) (rows published of each), zeroed.
+// WAVE compiles the wavefront in; one CTA a page is built without it.
+template <int WPT, bool WAVE>
 __global__ void __launch_bounds__(1024)
 despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                 int H, int W, int mincnt) {
+                 int H, int W, int mincnt, uint32_t* halo, unsigned* flags,
+                 int S, int pg0) {
   extern __shared__ __align__(16) uint32_t dsm[];
   const int T = blockDim.x;
-  const int TW = T * WPT;                     // words a bit row
+  const int TW = T * WPT;                     // words a strip's bit row
+  const int RW = WAVE ? S * TW : TW;          // words a page's bit row
+  const int page = WAVE ? pg0 + (int)blockIdx.x / S : (int)blockIdx.x;
+  const int strip = WAVE ? (int)blockIdx.x % S : 0;
+  const bool has_left = WAVE && strip > 0;
+  const bool has_right = WAVE && strip + 1 < S;
   const int stride = TW + 2;                  // a zero word each side
   uint32_t* orig = dsm + 1;                   // 4 bit rows, original
   uint32_t* fin = dsm + 4 * stride + 1;       // 4 bit rows, final
   uint32_t* agg = dsm + 8 * stride;           // a map per warp
-  uint32_t* lut_bf = agg + 32;                // 4-column map, byte form
+  // agg[32]: the start state a wavefront strip takes from its left
+  uint32_t* lut_bf = agg + 33;                // 4-column map, byte form
   uint32_t* lut_nf = lut_bf + 256;            // the same as a selector
   uint8_t* lut_rep = (uint8_t*)(lut_nf + 256);  // (state, kinds) -> bits
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int w0 = t * WPT;                     // this thread's first word
-  const uint32_t* m = in + (size_t)blockIdx.x * H * TW + w0;
-  uint32_t* o = out + (size_t)blockIdx.x * H * TW + w0;
+  const uint32_t* mb = in + (size_t)page * H * RW + strip * TW;
+  const uint32_t* m = mb + w0;
+  uint32_t* o = out + (size_t)page * H * RW + strip * TW + w0;
+  // the wavefront's halo words and flags: [0] first word, [1] last
+  uint32_t* hme = halo + (size_t)(page * S + strip) * H * 2;
+  const uint32_t* hl = hme - (size_t)H * 2;            // strip - 1
+  const uint32_t* hr = hme + (size_t)H * 2;            // strip + 1
+  unsigned* fme = flags + (size_t)(page * S + strip) * 2;
+  const bool lead = t == 0 && has_left;                // reads the left
+  const bool tail = t == T - 1 && has_right;           // reads the right
 
   for (int i = t; i < 8 * stride; i += T) dsm[i] = 0u;
   // the tables: index a | b << 4 holds the kinds of 4 columns, column j
@@ -174,7 +225,7 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int k = 0; k < WPT; ++k) {
     interior[k] = 0u;
     for (int j = 0; j < 32; ++j) {
-      const int x = 32 * (w0 + k) + j;
+      const int x = 32 * (strip * TW + w0 + k) + j;
       interior[k] |= (uint32_t)(x >= 2 && x < W - 2) << j;
     }
   }
@@ -183,8 +234,16 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 #pragma unroll
   for (int k = 0; k < WPT; ++k) {
     for (int r = 0; r < 3 && r < H; ++r)
-      orig[r * stride + w0 + k] = m[(size_t)r * TW + k];
-    pend[k] = 3 < H ? m[(size_t)3 * TW + k] : 0u;
+      orig[r * stride + w0 + k] = m[(size_t)r * RW + k];
+    pend[k] = 3 < H ? m[(size_t)3 * RW + k] : 0u;
+  }
+  // the neighbours' original words beside the strip (padding words)
+  uint32_t pedge = 0u;
+  if (lead || tail) {
+    const int e = lead ? -1 : TW;
+    for (int r = 0; r < 3 && r < H; ++r)
+      orig[r * stride + e] = mb[(size_t)r * RW + e];
+    pedge = 3 < H ? mb[(size_t)3 * RW + e] : 0u;
   }
   __syncthreads();
 
@@ -223,7 +282,18 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 #pragma unroll
     for (int k = 0; k < WPT; ++k) {
       orig[((y + 3) & 3) * stride + w0 + k] = pend[k];
-      pend[k] = y + 4 < H ? m[(size_t)(y + 4) * TW + k] : 0u;
+      pend[k] = y + 4 < H ? m[(size_t)(y + 4) * RW + k] : 0u;
+    }
+    if (lead || tail) {
+      const int e = lead ? -1 : TW;
+      orig[((y + 3) & 3) * stride + e] = pedge;
+      pedge = y + 4 < H ? mb[(size_t)(y + 4) * RW + e] : 0u;
+      if (y > 0) {
+        // the neighbour's final word of row y-1 beside the strip
+        flag_wait(lead ? fme - 1 : fme + 2, (unsigned)y);
+        fin[((y - 1) & 3) * stride + e] =
+            __ldcg(lead ? hl + 2 * (y - 1) + 1 : hr + 2 * (y - 1));
+      }
     }
     __syncthreads();                          // A: final row y-1 is done
 
@@ -294,8 +364,15 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
       }
       if (lane == 31) agg[warp] = map;
       const uint32_t excl = __shfl_up_sync(0xffffffffu, map, 1);
+      if (lead) {
+        // the start state: strip k-1's final bits of row y at its last
+        // two columns (bit 0 the column just left of this strip)
+        flag_wait(fme - 1, (unsigned)(y + 1));
+        const uint32_t lw = __ldcg(hl + 2 * y + 1);
+        agg[32] = (lw >> 31) | ((lw >> 29) & 2u);
+      }
       __syncthreads();                        // B: the warps' maps
-      uint32_t s = 0u;
+      uint32_t s = has_left ? agg[32] : 0u;
       for (int w = 0; w < warp; ++w) s = (agg[w] >> (8 * s)) & 3u;
       if (lane > 0) s = (excl >> (8 * s)) & 3u;
 #pragma unroll
@@ -312,49 +389,114 @@ despeckle_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 #pragma unroll
     for (int k = 0; k < WPT; ++k) {
       fin[(y & 3) * stride + w0 + k] = bits[k];
-      o[(size_t)y * TW + k] = bits[k];
+      o[(size_t)y * RW + k] = bits[k];
+    }
+    if (WAVE && ((t == 0 && has_left) || (t == T - 1 && has_right))) {
+      // hand this row's edge word to the neighbour that reads it
+      const int side = t == 0 && has_left ? 0 : 1;
+      hme[2 * y + side] = side ? bits[WPT - 1] : bits[0];
+      __threadfence();
+      flag_release(fme + side, (unsigned)(y + 1));
     }
   }
 }
 
-template <int WPT>
-cudaError_t walk(const uint32_t* packed, uint32_t* fbits, int B, int H,
-                 int W, int T, int mincnt, cudaStream_t st) {
-  const size_t smem = (size_t)(8 * (T * WPT + 2) + 32 + 512) * 4 + 1024;
+template <int WPT, bool WAVE>
+cudaError_t walk(const uint32_t* packed, uint32_t* fbits, uint32_t* halo,
+                 unsigned* flags, int B, int H, int W, int T, int S,
+                 int mincnt, cudaStream_t st) {
+  const size_t smem = (size_t)(8 * (T * WPT + 2) + 33 + 512) * 4 + 1024;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        despeckle_kernel<WPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        despeckle_kernel<WPT, WAVE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  despeckle_kernel<WPT><<<B, T, smem, st>>>(packed, fbits, H, W, mincnt);
-  return cudaGetLastError();
+  if (!WAVE) {
+    despeckle_kernel<WPT, false><<<B, T, smem, st>>>(
+        packed, fbits, H, W, mincnt, nullptr, nullptr, 1, 0);
+    return cudaGetLastError();
+  }
+  // the wavefront: all S strips of a page in one launch, every CTA
+  // resident, as many pages a launch as fit
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, despeckle_kernel<WPT, WAVE>, T, smem);
+  if (e != cudaSuccess) return e;
+  const int per = per_sm * sms / S;             // pages a launch
+  if (per < 1) return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaMemsetAsync(flags, 0, (size_t)B * S * 2 * sizeof(unsigned), st);
+  if (e != cudaSuccess) return e;
+  for (int pg0 = 0; pg0 < B; pg0 += per) {
+    const int np = B - pg0 < per ? B - pg0 : per;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(np * S);
+    cfg.blockDim = dim3(T);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeCooperative;
+    at[0].val.cooperative = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, despeckle_kernel<WPT, WAVE>, packed, fbits,
+                           H, W, mincnt, halo, flags, S, pg0);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
-// bits: 2 * B * H * TW uint32 of scratch, TW = T * WPT words a bit row,
-// T = walk threads, a multiple of 32 (ops/denoise_cuda.py sizes it the
-// same way)
-extern "C" int apt_despeckle(const void* mask, void* bits, void* out, int B,
-                             int H, int W, int mincnt, void* stream) {
-  if (B == 0 || H == 0 || W == 0) return 0;     // nothing to despeckle
+// The row walk's layout for w columns (ops/denoise_cuda.walk_layout sizes
+// the scratch the same way): T threads of WPT words a strip, S strips.
+// Up to 65,536 columns one strip (WPT 1 up to 32,768, 2 above), past it
+// S = ceil(words / 1024) strips of one word a thread.
+static void layout(int W, int& T, int& wpt, int& S) {
   const int words = (W + 31) / 32;
-  const int wpt = words <= 1024 ? 1 : 2;
-  const int T = (words + 32 * wpt - 1) / (32 * wpt) * 32;
-  if (T > 1024) return (int)cudaErrorInvalidValue;
-  const int TW = T * wpt;
+  if (words <= 2048) {
+    wpt = words <= 1024 ? 1 : 2;
+    S = 1;
+    T = (words + 32 * wpt - 1) / (32 * wpt) * 32;
+  } else {
+    wpt = 1;
+    S = (words + 1023) / 1024;
+    T = ((words + S - 1) / S + 31) / 32 * 32;
+  }
+}
+
+// bits: 2 * B * H * RW uint32 of scratch, RW = S * T * WPT words a bit
+// row; for S > 1 (the wavefront) halo: 2 * B * S * H uint32 and flags:
+// 2 * B * S uint32 of scratch
+extern "C" int apt_despeckle(const void* mask, void* bits, void* halo,
+                             void* flags, void* out, int B, int H, int W,
+                             int mincnt, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return 0;     // nothing to despeckle
+  int T, wpt, S;
+  layout(W, T, wpt, S);
+  if (T > 1024 || (S > 1 && (!halo || !flags)))
+    return (int)cudaErrorInvalidValue;
+  const int RW = S * T * wpt;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * H;
   uint32_t* packed = (uint32_t*)bits;
-  uint32_t* fbits = packed + (size_t)rows * TW;
+  uint32_t* fbits = packed + (size_t)rows * RW;
   pack_kernel<<<1024, 256, 0, st>>>((const uint8_t*)mask, packed, rows, W,
-                                    TW);
+                                    RW);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = wpt == 1 ? walk<1>(packed, fbits, B, H, W, T, mincnt, st)
-               : walk<2>(packed, fbits, B, H, W, T, mincnt, st);
+  uint32_t* hl = (uint32_t*)halo;
+  unsigned* fl = (unsigned*)flags;
+  e = S > 1 ? walk<1, true>(packed, fbits, hl, fl, B, H, W, T, S, mincnt, st)
+      : wpt == 1 ? walk<1, false>(packed, fbits, hl, fl, B, H, W, T, S,
+                                  mincnt, st)
+                 : walk<2, false>(packed, fbits, hl, fl, B, H, W, T, S,
+                                  mincnt, st);
   if (e != cudaSuccess) return (int)e;
   const int gx = (W + 255) / 256;
   unpack_kernel<<<dim3(gx, rows < 4096 ? rows : 4096), 256, 0, st>>>(
-      fbits, (uint8_t*)out, rows, W, TW);
+      fbits, (uint8_t*)out, rows, W, RW);
   return (int)cudaGetLastError();
 }

@@ -45,6 +45,24 @@
 //     also write their colI into the left halo of the next CTA's colI row
 //     (distributed shared memory), and the row's barrier is the
 //     cluster's.
+//     A row wider than a cluster holds (47,104 columns at n=10, 59,392 at
+//     n=3) is cut into S > 8 strips of at most one CTA's width that run as
+//     a wavefront through device memory: output (y, x) depends on the
+//     FIR plane and on output rows y-n..y-1 at columns x-n..x-1, up and
+//     to the left, so strip k may start row y once strip k-1 has finished
+//     row y-1.  After each row the threads of a strip's last PAD columns
+//     write their colI to a halo row in device memory (one row of PAD
+//     words a (plane, strip, row)), and the strip's last thread
+//     publishes the row count in a progress flag (release); the threads
+//     of strip k that read the left halo wait for the flag (acquire) and
+//     copy the halo into their colI row before they sum it.  Nothing
+//     flows right to left, so a launch may hold strips [s0, s0 + G) of a
+//     few planes when strip s0 - 1 ran in an earlier launch; every CTA
+//     of a launch is resident at once (a cooperative launch, refused
+//     rather than hung), so no strip spins on one that is not running.
+//     Launch by launch, the width has no limit: at 132 CTAs a launch a
+//     row of 120,000 columns at n=10 (S = 21) runs as one launch for up
+//     to 6 planes.
 //   interleave_kernel: for RGB the walk writes planes, and this pass
 //     interleaves them into (B, H, W, C).
 //   Batch 8 gray is 8 chains (24 RGB) on 132 SMs; the chain is inherent.
@@ -254,6 +272,20 @@ __device__ __forceinline__ void store_row(uint8_t* grow, const uint8_t* stage,
   }
 }
 
+// the wavefront's progress flags: a release store after the halo, an
+// acquire load before it is read
+__device__ __forceinline__ void flag_release(unsigned* f, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" :: "l"(f), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned flag_acquire(const unsigned* f) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(f)
+               : "memory");
+  return v;
+}
+
 // the row's barrier: the CTA's, or the cluster's when K CTAs share a row
 // (it also publishes the halo columns written into a neighbour)
 __device__ __forceinline__ void row_sync(int K) {
@@ -264,12 +296,19 @@ __device__ __forceinline__ void row_sync(int K) {
 }
 
 // CTA k of a cluster of K walks the strip of columns [k*Q, k*Q + Q) of
-// one (page, channel), Q = P / K
+// one (page, channel), Q = P / K.  With ghalo (the wavefront, K = 1):
+// CTA j walks strip s0 + j % G of plane pl0 + j / G, of S strips of
+// Q = P / S columns, handing its colI to the next strip through ghalo
+// (PAD words a (plane, strip, row)) and flags (rows published a (plane,
+// strip), zeroed before the first launch).  WAVE compiles the wavefront
+// in; the one-CTA and cluster forms are built without it.
+template <bool WAVE>
 __global__ void __launch_bounds__(1024)
 optimise_kernel(const uint32_t* __restrict__ fir, uint8_t* planes, int H,
-                int W, int n, int P, int K) {
+                int W, int n, int P, int K, int* ghalo, unsigned* flags,
+                int S, int s0, int G, int pl0) {
   extern __shared__ __align__(16) uint8_t osm[];
-  const int Q = P / K;
+  const int Q = P / (WAVE ? S : K);
   uint32_t* ring = (uint32_t*)osm;                          // DEPTH x Q
   int* cb = (int*)(ring + DEPTH * Q);                       // 2 x CBROW
   uint8_t* stage = (uint8_t*)(cb + 2 * CBROW(Q));           // 2 x (Q+16)
@@ -277,14 +316,22 @@ optimise_kernel(const uint32_t* __restrict__ fir, uint8_t* planes, int H,
   uint8_t* oring = (uint8_t*)(rtab + RTAB(n));              // n x Q
   const int t = threadIdx.x;
   const int x0 = COLS * t;                       // first column, in strip
-  const int rank = blockIdx.x % K;               // = the cluster rank
+  // the strip (= the cluster rank) and the plane
+  const int rank = WAVE ? s0 + (int)blockIdx.x % G : (int)blockIdx.x % K;
+  const int plane = WAVE ? pl0 + (int)blockIdx.x / G : (int)blockIdx.x / K;
   const int xs = rank * Q;                       // the strip's first column
   const int ws = max(min(W - xs, Q), 0);         // its columns on the page
-  const uint32_t* f = fir + (size_t)(blockIdx.x / K) * H * P + xs + x0;
-  uint8_t* o = planes + (size_t)(blockIdx.x / K) * H * W + xs;
+  const uint32_t* f = fir + (size_t)plane * H * P + xs + x0;
+  uint8_t* o = planes + (size_t)plane * H * W + xs;
+  // the wavefront: the left strip's halo rows and flag, this strip's
+  int* hleft = WAVE && rank > 0
+      ? ghalo + (size_t)(plane * S + rank - 1) * H * PAD : nullptr;
+  int* hmine = WAVE && rank + 1 < S
+      ? ghalo + (size_t)(plane * S + rank) * H * PAD : nullptr;
+  const unsigned* fleft = hleft ? flags + plane * S + rank - 1 : nullptr;
   // the next strip's colI rows, whose left halo this strip's end feeds
-  int* right = rank + 1 < K ? cg::this_cluster().map_shared_rank(cb, rank + 1)
-                            : nullptr;
+  int* right = !WAVE && rank + 1 < K
+      ? cg::this_cluster().map_shared_rank(cb, rank + 1) : nullptr;
 
   for (int i = t; i < 2 * CBROW(Q); i += blockDim.x) cb[i] = 0;
   for (int i = t; i < RTAB(n); i += blockDim.x)
@@ -309,7 +356,14 @@ optimise_kernel(const uint32_t* __restrict__ fir, uint8_t* planes, int H,
     if (y > 0)                                   // row y-1, now complete
       store_row(o + (size_t)(y - 1) * W, stage + ((y - 1) & 1) * (Q + 16),
                 ws);
-    const int* cur = cb + (y & 1) * CBROW(Q);
+    int* cur = cb + (y & 1) * CBROW(Q);
+    if (WAVE && hleft != nullptr && y > 0 && x0 < n) {
+      // the left strip's colI after row y-1, for columns [x0-n, 0)
+      while (flag_acquire(fleft) < (unsigned)y) {
+      }
+      const int* hrow = hleft + (size_t)y * PAD;
+      for (int c = x0 - n; c < 0; ++c) cur[CB(c)] = __ldcg(hrow + PAD + c);
+    }
     int s = 0;                                   // colI over [x0-n, x0)
 #pragma unroll 8
     for (int i = 1; i <= n; ++i) s += cur[CB(x0 - i)];
@@ -346,12 +400,27 @@ optimise_kernel(const uint32_t* __restrict__ fir, uint8_t* planes, int H,
     int* nxt = cb + ((y + 1) & 1) * CBROW(Q) + CB(x0);
 #pragma unroll
     for (int j = 0; j < COLS; ++j) nxt[j] = colI[j];
-    if (right != nullptr && x0 + COLS > Q - PAD) {
+    if (!WAVE && right != nullptr && x0 + COLS > Q - PAD) {
       // the strip's last PAD columns are the next strip's left halo
       int* halo = right + ((y + 1) & 1) * CBROW(Q);
 #pragma unroll
       for (int j = 0; j < COLS; ++j)
         if (x0 + j >= Q - PAD) halo[CB(x0 + j - Q)] = colI[j];
+    }
+    if (WAVE && hmine != nullptr && y + 1 < H && t >= (int)blockDim.x - 32) {
+      // the last warp hands the strip's last PAD columns' colI on
+      if (x0 + COLS > Q - PAD) {
+        int* hrow = hmine + (size_t)(y + 1) * PAD;
+#pragma unroll
+        for (int j = 0; j < COLS; ++j)
+          if (x0 + j >= Q - PAD) hrow[x0 + j - (Q - PAD)] = colI[j];
+        __threadfence();
+      }
+      __syncwarp();
+      if (t == (int)blockDim.x - 1) {
+        __threadfence();
+        flag_release(flags + plane * S + rank, (unsigned)(y + 1));
+      }
     }
     const int so = (int)((uintptr_t)(o + (size_t)y * W) & 15);
     sts8(stage + (y & 1) * (Q + 16) + so + x0, nw[0], nw[1]);
@@ -409,16 +478,63 @@ static int walk_threads(int W) {
   return (t + 31) / 32 * 32;
 }
 
+// The wavefront's launches: strips [s0, s0 + G) of planes [pl0, pl0 +
+// np) each, every CTA resident at once (a cooperative launch).  The
+// strips left of s0 ran in an earlier launch, so a launch holds G <= R
+// strips (R: the CTAs the card keeps resident) and as many planes as fit.
+static cudaError_t launch_wavefront(const uint32_t* fc, uint8_t* dst, int* ghalo,
+                                    unsigned* flags, int BC, int H, int W,
+                                    int n, int P, int S, int T, size_t osm,
+                                    cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, optimise_kernel<true>, T, osm);
+  if (e != cudaSuccess) return e;
+  const int R = per_sm * sms;
+  if (R < 1) return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaMemsetAsync(flags, 0, (size_t)BC * S * sizeof(unsigned), st);
+  if (e != cudaSuccess) return e;
+  const int G = S < R ? S : R;
+  const int per = G == S ? R / S : 1;           // planes a launch
+  for (int s0 = 0; s0 < S; s0 += G) {
+    const int g = S - s0 < G ? S - s0 : G;
+    for (int pl0 = 0; pl0 < BC; pl0 += per) {
+      const int np = BC - pl0 < per ? BC - pl0 : per;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(np * g);
+      cfg.blockDim = dim3(T);
+      cfg.dynamicSmemBytes = osm;
+      cfg.stream = st;
+      cudaLaunchAttribute at[1];
+      at[0].id = cudaLaunchAttributeCooperative;
+      at[0].val.cooperative = 1;
+      cfg.attrs = at;
+      cfg.numAttrs = 1;
+      e = cudaLaunchKernelEx(&cfg, optimise_kernel<true>, fc, dst, H, W, n,
+                             P, 1, ghalo, flags, S, s0, g, pl0);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
+}
+
 // A row is split over K CTAs of T threads each, strips of Q = COLS * T
 // columns (T = walk_threads(ceil(W / K))); ops/optimise_cuda.py picks the
-// least K whose strip fits the shared memory.  fir: B * C * H * P uint32
-// of scratch, P = K * Q; planes: B * C * H * W bytes of scratch for C > 1
-// (out itself for C == 1).
+// least K whose strip fits one CTA's shared memory: a cluster up to
+// MAX_CLUSTER, the wavefront past it.  fir: B * C * H * P uint32 of
+// scratch, P = K * Q; planes: B * C * H * W bytes of scratch for C > 1
+// (out itself for C == 1); for the wavefront (K > MAX_CLUSTER) ghalo:
+// B * C * K * H * PAD int32 and flags: B * C * K uint32 of scratch.
 extern "C" int apt_optimise(const void* img, const void* mask, void* fir,
-                            void* planes, void* out, int B, int H, int W,
-                            int C, int n, int K, void* stream) {
+                            void* planes, void* out, void* ghalo,
+                            void* flags, int B, int H, int W, int C, int n,
+                            int K, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;     // nothing to fill
-  if (K < 1 || K > MAX_CLUSTER || n < 1 || n > 22)
+  if (K < 1 || n < 1 || n > 22 || (K > MAX_CLUSTER && (!ghalo || !flags)))
     return (int)cudaErrorInvalidValue;
   const int T = walk_threads((W + K - 1) / K);
   const int Q = COLS * T;
@@ -443,15 +559,25 @@ extern "C" int apt_optimise(const void* img, const void* mask, void* fir,
                      + (size_t)n * Q;
   if (osm > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (osm > 48 * 1024) {
-    e = cudaFuncSetAttribute(optimise_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)osm);
+    e = K > MAX_CLUSTER
+        ? cudaFuncSetAttribute(optimise_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)osm)
+        : cudaFuncSetAttribute(optimise_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)osm);
     if (e != cudaSuccess) return (int)e;
   }
   uint8_t* dst = C == 1 ? (uint8_t*)out : (uint8_t*)planes;
   const uint32_t* fc = (const uint32_t*)fir;
   if (K == 1) {
-    optimise_kernel<<<B * C, T, osm, st>>>(fc, dst, H, W, n, P, 1);
+    optimise_kernel<false><<<B * C, T, osm, st>>>(fc, dst, H, W, n, P, 1,
+                                                  nullptr, nullptr, 1, 0, 1,
+                                                  0);
+  } else if (K > MAX_CLUSTER) {
+    e = launch_wavefront(fc, dst, (int*)ghalo, (unsigned*)flags, B * C, H,
+                         W, n, P, K, T, osm, st);
+    if (e != cudaSuccess) return (int)e;
   } else {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(B * C * K);
@@ -465,7 +591,8 @@ extern "C" int apt_optimise(const void* img, const void* mask, void* fir,
     at[0].val.clusterDim.z = 1;
     cfg.attrs = at;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, optimise_kernel, fc, dst, H, W, n, P, K);
+    e = cudaLaunchKernelEx(&cfg, optimise_kernel<false>, fc, dst, H, W, n, P,
+                           K, (int*)nullptr, (unsigned*)nullptr, 1, 0, 1, 0);
     if (e != cudaSuccess) return (int)e;
   }
   e = cudaGetLastError();

@@ -1,6 +1,7 @@
 // Sauvola pieces shared by csrc/line_sauvola.cu (K4) and
 // csrc/blur_sauvola.cu (K3): the block prefix scan of their row walks, the
-// floor division by a window's count and the ink test.  Both walks keep
+// floor division by a window's count, the ink test and (K4) the ink
+// limit of a window.  Both walks keep
 // the window's column sums S and Q as uint32: they wrap, but window
 // differences stay exact while the sum of squares is below 2^32: 65025 *
 // window^2, so window <= 255 (the wrappers raise above that).
@@ -96,6 +97,33 @@ __device__ __forceinline__ bool sauvola_ink(uint32_t s, uint32_t q,
   const float t = __fadd_rn(small_float(px), __fmul_rn(mean, km1));
   const float rhs = __fmul_rn(__fmul_rn(__fmul_rn(mean, mean), k2), var);
   return t <= 0.0f || __fmul_rn(t, t) <= rhs;
+}
+
+// The pixel values a window marks as ink, as a count: sauvola_ink(s, q,
+// cnt, px, ...) holds exactly for px < sauvola_limit(s, q, cnt, ...).
+// The test is monotone in px: t = fl(px + mean (k-1)) rises with px, ink
+// is t <= 0 or fl(t t) <= rhs, and fl(t t) rises with t >= 0, so the ink
+// values are a prefix of 0..255.  A guess from sqrt(rhs) is walked to
+// the prefix's end with the test itself (same operations, same
+// rounding), so the limit is exact whatever the guess.
+__device__ __forceinline__ int sauvola_limit(uint32_t s, uint32_t q,
+                                             uint32_t cnt, float km1,
+                                             float k2, const CountDiv& div) {
+  const int mean_i = (int)div(s, cnt);
+  const int var_i = (int)div(q, cnt) - mean_i * mean_i;
+  const float mean = small_float(mean_i);
+  const float var = small_float(var_i);
+  const float c = __fmul_rn(mean, km1);
+  const float rhs = __fmul_rn(__fmul_rn(__fmul_rn(mean, mean), k2), var);
+  auto ink = [&](int px) {
+    const float t = __fadd_rn(small_float(px), c);
+    return t <= 0.0f || __fmul_rn(t, t) <= rhs;
+  };
+  int g = __float2int_rd(__fsub_rn(__fsqrt_rn(rhs), c));
+  g = min(max(g, -1), 255);
+  while (g < 255 && ink(g + 1)) ++g;
+  while (g >= 0 && !ink(g)) --g;
+  return g + 1;
 }
 
 }  // namespace apt

@@ -10,11 +10,13 @@ crop row k of line i is page row t_i + k, cols [l_i, r_i).  A line of any
 height takes the same path: no height buckets, no tall-line host patch,
 no line capacity.
 
-The kernel walks each line in one CTA, or, for a line wider than one CTA
-keeps sums of (``MAX_LINE_WIDTH``), in column strips with halos
-(``line_strips``), so a line of any width is taken.  A CPU tensor
-runs the plain version; a CUDA tensor launches the kernel or raises.
-``line_thresholds.launches`` counts the calls that launch it.
+The kernel cuts each line into units of a row segment (``SEG_ROWS``) and
+a column tile (``TILE_COLS``, plus the window's halo), one CTA each
+(``line_units``); within a unit the rows that share one vertical window
+(``window_runs``) are thresholded from one set of column sums as a
+parallel map.  A line of any height or width takes that path.  A CPU
+tensor runs the plain version; a CUDA tensor launches the kernel or
+raises.  ``line_thresholds.launches`` counts the calls that launch it.
 """
 
 import ctypes
@@ -23,44 +25,80 @@ import numpy as np
 import torch
 
 from ..utils import cudabuild
+from .paste_cuda import paste_plan
 from .sauvola import sauvola_constants, sauvola_mask
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {'apt_line_sauvola': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+_SIGNATURES = {'apt_line_sauvola': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _F, _F, _P]}
 
-# the most columns a CTA keeps window sums of: column sums and their
-# prefixes (four uint32 words a column) in at most 227 KB of shared memory
-MAX_LINE_WIDTH = (227 * 1024) // 16 - 16
+# a unit of the kernel: up to SEG_ROWS rows x TILE_COLS output columns
+# of a line (csrc/line_sauvola.cu; its column sums, three a thread of
+# 256, hold TILE_COLS + window - 1 columns)
+TILE_COLS = 512
+SEG_ROWS = 64
 # the window sum of squares (<= 65025 * window^2) is exact in uint32
 MAX_WINDOW = 255
 
 
-def line_strips(boxes, window, max_width=MAX_LINE_WIDTH):
-    """The kernel's CTAs: int32 (m, 3) rows (line, c0, c1), the output
-    columns [c0, c1) of each, in line order, and the most columns a CTA
-    keeps sums of.  A line up to max_width columns is one strip; a wider
-    one is cut into strips of max_width - (window - 1) columns, so that a
-    strip plus the window's reach, o-1 columns to its left and u to its
-    right (clamped to the line), is at most max_width."""
+def line_strips(boxes, window, tile=TILE_COLS):
+    """The kernel's column tiles: int32 (m, 3) rows (line, c0, c1), the
+    output columns [c0, c1) of each, in line order, and the most columns a
+    tile keeps sums of: its own plus the window's reach, o-1 columns to
+    the left and u to the right, clamped to the line."""
     o, u = (window + 1) // 2, window // 2
-    step = max_width - (o - 1) - u
-    if step < 1:
-        raise ValueError('line_strips: %d columns cannot hold a window of '
-                         '%d' % (max_width, window))
     boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
     l, r = boxes[:, 2], boxes[:, 3]
-    cuts = np.where(r - l <= max_width, 1, -(-(r - l) // step))
+    cuts = -(-(r - l) // tile)
     line = np.repeat(np.arange(len(boxes)), cuts)
     k = np.arange(len(line)) - np.repeat(np.cumsum(cuts) - cuts, cuts)
-    c0 = l[line] + k * step
-    c1 = np.where(cuts[line] == 1, r[line], np.minimum(c0 + step, r[line]))
-    c0 = np.where(cuts[line] == 1, l[line], c0)
+    c0 = l[line] + k * tile
+    c1 = np.minimum(c0 + tile, r[line])
     loaded = (np.minimum(c1 + u, r[line]) - np.maximum(c0 - o + 1, l[line]))
     return (np.stack([line, c0, c1], 1).astype(np.int32),
             int(loaded.max(initial=0)))
+
+
+def line_units(boxes, window, tile=TILE_COLS, seg=SEG_ROWS):
+    """The kernel's CTAs: int32 (m, 5) rows (line, y0, y1, c0, c1), a row
+    segment times a column tile of each line, and (tiles, segs), the most
+    of each a line has (the kernel's grid is lines x tiles x segs, and
+    the CTAs past a line's own units return at once)."""
+    boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
+    strips, _ = line_strips(boxes, window, tile)
+    t, b = boxes[:, 0], boxes[:, 1]
+    nseg = -(-(b - t) // seg)
+    units = []
+    for i, c0, c1 in strips:
+        for k in range(nseg[i]):
+            y0 = t[i] + k * seg
+            units.append((i, y0, min(y0 + seg, b[i]), c0, c1))
+    ntile = -(-(boxes[:, 3] - boxes[:, 2]) // tile)
+    return (np.array(units, np.int32).reshape(-1, 5),
+            (int(ntile.max(initial=0)), int(nseg.max(initial=0))))
+
+
+def window_runs(t, b, y0, y1, window):
+    """Rows [y0, y1) of a line [t, b) as runs that share one vertical
+    window: (ya, yb, lo, hi) with window rows [lo, hi], as the kernel
+    walks them."""
+    o, u = (window + 1) // 2, window // 2
+    runs, y = [], y0
+    while y < y1:
+        ye = min(y1, y + 1 if y - o + 1 > t else t + o)
+        if y + u < b - 1:
+            ye = min(ye, y + 1)
+        runs.append((y, ye, max(y - o + 1, t), min(y + u, b - 1)))
+        y = ye
+    return runs
+
+
+def distinct_windows(h, window):
+    """The number of distinct vertical windows of a line of h rows."""
+    o, u = (window + 1) // 2, window // 2
+    return 1 + max(0, h - 1 - u) + max(0, h - o) - max(0, h - window)
 
 
 class RaggedLines:
@@ -71,7 +109,8 @@ class RaggedLines:
     pages: (n,) page of each line.  Host numpy: ``boxes``, ``pages``,
     ``sizes`` ((b-t)*(r-l), int64) and ``offsets`` (n+1 prefix sums).
     On ``device``: ``table`` int32 (n, 5) rows (t, b, l, r, page) and
-    ``dev_offsets`` int64 (n+1)."""
+    ``dev_offsets`` int64 (n+1) and ``paste_plan``, the paste's line
+    lists (``ops/paste_cuda.paste_plan``)."""
 
     def __init__(self, boxes, pages, batch, h, w, device):
         self.boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
@@ -93,6 +132,14 @@ class RaggedLines:
         table = np.concatenate([self.boxes, self.pages[:, None]], axis=1)
         self.table = torch.from_numpy(table.astype(np.int32)).to(device)
         self.dev_offsets = torch.from_numpy(self.offsets).to(device)
+        # the paste's line lists (ops/paste_cuda.paste_plan), on device
+        self.paste_plan = torch.from_numpy(
+            paste_plan(self.boxes, self.pages, self.offsets[:-1], batch)) \
+            .to(device)
+        # the kernel's grid: the most column tiles and row segments a line
+        # has (line_units)
+        self.units = (-(-int((r - l).max(initial=0)) // TILE_COLS),
+                      -(-int((b - t).max(initial=0)) // SEG_ROWS))
 
     @classmethod
     def from_page_boxes(cls, page_boxes, h, w, device):
@@ -158,18 +205,9 @@ def line_thresholds(gray, lines, window, k=0.1, R=128.0):
     if lines.n == 0:
         return out_t, out_i, torch.empty((0, 2), dtype=torch.int32,
                                          device=gray.device)
-    widest = int((lines.boxes[:, 3] - lines.boxes[:, 2]).max())
-    if widest <= MAX_LINE_WIDTH:
-        # a CTA a line, which writes the line's ink counts
-        strips, loaded = None, widest
-        counts = torch.empty((lines.n, 2), dtype=torch.int32,
-                             device=gray.device)
-    else:
-        # strips add their ink counts into their line's
-        strips, loaded = line_strips(lines.boxes, window)
-        strips = torch.from_numpy(strips).to(gray.device)
-        counts = torch.zeros((lines.n, 2), dtype=torch.int32,
-                             device=gray.device)
+    tiles, segs = lines.units
+    # every unit adds its ink counts into its line's (zeroed by the launch)
+    counts = torch.empty((lines.n, 2), dtype=torch.int32, device=gray.device)
     km1, k2 = sauvola_constants(k, R)
     lib = cudabuild.load('line_sauvola', _SIGNATURES)
     b, h, w = gray.shape
@@ -177,11 +215,9 @@ def line_thresholds(gray, lines, window, k=0.1, R=128.0):
         stream = torch.cuda.current_stream(gray.device).cuda_stream
         err = lib.apt_line_sauvola(
             gray.data_ptr(), lines.table.data_ptr(),
-            None if strips is None else strips.data_ptr(),
             lines.dev_offsets.data_ptr(), out_t.data_ptr(),
-            out_i.data_ptr(), counts.data_ptr(),
-            lines.n if strips is None else int(strips.shape[0]), h, w,
-            loaded, int(window), float(km1), float(k2), stream)
+            out_i.data_ptr(), counts.data_ptr(), lines.n, h, w, tiles, segs,
+            int(window), float(km1), float(k2), stream)
     cudabuild.check(err, 'line_thresholds')
     line_thresholds.launches += 1
     return out_t, out_i, counts

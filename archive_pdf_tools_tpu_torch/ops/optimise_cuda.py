@@ -4,6 +4,11 @@
 A CPU tensor runs the plain PyTorch version (``ops/optimise.py``); a CUDA
 tensor launches the kernel or raises.  ``optimise.launches`` counts the
 calls that launch it (a parallel FIR pre-pass, then the row walk).
+
+A row takes one CTA up to ``one_cta(n)`` columns, a thread block cluster
+of up to ``MAX_CLUSTER`` CTAs up to ``max_width(n)``, and past that
+strips of one CTA each that run as a wavefront through device memory
+(``strips``): the card takes rows of any width.
 """
 
 import ctypes
@@ -15,14 +20,15 @@ from .optimise import optimise as optimise_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {'apt_optimise': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _P]}
+_SIGNATURES = {'apt_optimise': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _P]}
 
 COLS = 8                   # columns a thread of the row walk owns
 MAX_THREADS = 1024         # threads of one CTA of the row walk
 MAX_CLUSTER = 8            # CTAs a row may be split over (a cluster)
 MAX_N = 22                 # FIR sum and count share one uint32 a pixel
 SMEM = 227 * 1024          # shared memory a CTA may use
+PAD = 32                   # colI halo columns a wavefront strip hands on
 
 
 def pitch(w):
@@ -39,22 +45,25 @@ def walk_smem(q, n):
             + 4 * (2048 + (n * n + 3) // 4 * 4) + n * q)
 
 
-def strips(w, n):
-    """The least number of CTAs K (a cluster) over which a row of w
-    columns fits the shared memory at n, or None past MAX_CLUSTER."""
-    for k in range(1, MAX_CLUSTER + 1):
-        q = pitch(-(-w // k))
-        if q <= COLS * MAX_THREADS and walk_smem(q, n) <= SMEM:
-            return k
-    return None
-
-
-def max_width(n):
-    """The widest row the kernel takes at n."""
+def one_cta(n):
+    """The widest strip (a pitch) one CTA of the row walk holds at n."""
     q = COLS * MAX_THREADS
     while walk_smem(q, n) > SMEM:
         q -= COLS * 32
-    return MAX_CLUSTER * q
+    return q
+
+
+def strips(w, n):
+    """The least number of CTAs a row of w columns is cut into at n, each
+    strip at most ``one_cta(n)`` wide: a cluster up to MAX_CLUSTER, the
+    wavefront past it."""
+    return max(1, -(-w // one_cta(n)))
+
+
+def max_width(n):
+    """The widest row a cluster takes at n; wider rows run as the
+    wavefront."""
+    return MAX_CLUSTER * one_cta(n)
 
 
 def _check(mask, img):
@@ -91,13 +100,16 @@ def optimise(mask, img, n_size):
         raise ValueError('optimise: the CUDA kernel takes n_size 1..%d, got '
                          '%d' % (MAX_N, n))
     k = strips(w, n)
-    if k is None:
-        raise ValueError('optimise: width %d exceeds the kernel limit %d at '
-                         'n=%d' % (w, max_width(n), n))
     lib = cudabuild.load('optimise', _SIGNATURES)
     out = torch.empty_like(img)
     fir = torch.empty((b * c * h * k * pitch(-(-w // k)),),
                       dtype=torch.int32, device=img.device)
+    # the wavefront's colI halo rows and progress flags
+    wave = k > MAX_CLUSTER
+    halo = torch.empty((b * c * k * h * PAD if wave else 0,),
+                       dtype=torch.int32, device=img.device)
+    flags = torch.empty((b * c * k if wave else 0,), dtype=torch.int32,
+                        device=img.device)
     # RGB: the walk writes planes, a last kernel interleaves them
     planes = torch.empty((b * c * h * w,), dtype=torch.uint8,
                          device=img.device) if c > 1 else out
@@ -105,7 +117,9 @@ def optimise(mask, img, n_size):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.apt_optimise(img.data_ptr(), mask.data_ptr(),
                                fir.data_ptr(), planes.data_ptr(),
-                               out.data_ptr(), b, h, w, c, n, k, stream)
+                               out.data_ptr(), halo.data_ptr() if wave
+                               else None, flags.data_ptr() if wave else None,
+                               b, h, w, c, n, k, stream)
     cudabuild.check(err, 'optimise')
     optimise.launches += 1
     return out

@@ -9,6 +9,11 @@ wins an overlap; then the global mask is OR-ed in (``mrc.py:265-266,
 ``mrc/decompose.py:paste_selected_crops``) over the ragged crops of
 ``ops/lines_cuda.py``.
 
+The kernel pastes tile by tile; ``paste_plan`` lists, for each page, its
+lines in document order (the rows of ``RaggedLines`` need not be sorted
+by page), and each tile walks the selected ones that meet it in that
+order, so the last selected line wins as in the sequential scan.
+
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises.  ``paste_lines.launches`` counts the kernel launches.
 """
@@ -22,8 +27,27 @@ from ..utils import cudabuild
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {'apt_paste': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _P]}
+_SIGNATURES = {'apt_paste': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]}
+
+
+def paste_plan(boxes, pages, offsets, batch):
+    """The kernel's line lists for lines of ``boxes`` (n, 4), ``pages``
+    (n,) and crop ``offsets`` (n,): int32, the ``batch + 1`` page starts
+    (padded to a multiple of 4), then for the lines of each page in
+    document order a record of 8: (t, b, l, r, crop offset low and high
+    words, line index, 0).  The lines need not be sorted by page: a
+    stable sort by page keeps document order within each.  The selector
+    is not in the plan, so ``RaggedLines`` builds it once for its lines."""
+    head = -(-(batch + 1) // 4) * 4
+    order = np.argsort(pages, kind='stable')
+    plan = np.zeros(head + 8 * len(order), np.int64)
+    np.cumsum(np.bincount(pages, minlength=batch), out=plan[1:batch + 1])
+    recs = plan[head:].reshape(-1, 8)
+    recs[:, :4] = boxes[order]
+    recs[:, 4] = offsets[order] & 0xFFFFFFFF
+    recs[:, 5] = offsets[order] >> 32
+    recs[:, 6] = order
+    return plan.astype(np.uint32).view(np.int32)
 
 
 def paste_lines_plain(crops_t, crops_i, lines, selector, gmask):
@@ -69,15 +93,18 @@ def paste_lines(crops_t, crops_i, lines, selector, gmask):
         raise ValueError('paste_lines: mask must be contiguous')
     lib = cudabuild.load('paste', _SIGNATURES)
     b, h, w = gmask.shape
-    sel = torch.from_numpy(selector).to(gmask.device)
-    owner = torch.empty(gmask.shape, dtype=torch.int32, device=gmask.device)
     out = torch.empty_like(gmask)
     with torch.cuda.device(gmask.device):
-        stream = torch.cuda.current_stream(gmask.device).cuda_stream
-        err = lib.apt_paste(
-            crops_t.data_ptr(), crops_i.data_ptr(), lines.table.data_ptr(),
-            lines.dev_offsets.data_ptr(), sel.data_ptr(), owner.data_ptr(),
-            gmask.data_ptr(), out.data_ptr(), lines.n, b, h, w, stream)
+        # from pinned memory, so the host need not wait for the stream (a
+        # pageable copy may); the caching host allocator keeps the buffer
+        # until the copy is done
+        sel = torch.from_numpy(selector).pin_memory().to(gmask.device,
+                                                        non_blocking=True)
+        err = lib.apt_paste(crops_t.data_ptr(), crops_i.data_ptr(),
+                            lines.paste_plan.data_ptr(), sel.data_ptr(),
+                            gmask.data_ptr(), out.data_ptr(), b, h, w,
+                            torch.cuda.current_stream(
+                                gmask.device).cuda_stream)
     cudabuild.check(err, 'paste_lines')
     paste_lines.launches += 1
     return out

@@ -15,6 +15,8 @@ genuinely borderline pixels):
 Returns the mask polarity (True = ink).
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -41,6 +43,7 @@ def _offsets(window_width, window_height):
     return (-o + 1, u + 1), (-l + 1, r + 1)
 
 
+@functools.lru_cache(maxsize=None)
 def sauvola_constants(k, R=128.0):
     """(k-1, k*k/R/R) in float32, rounded in the JAX package's order."""
     k32, r32 = np.float32(k), np.float32(R)

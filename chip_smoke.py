@@ -26,13 +26,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    transform at odd sizes, one-page batches and levels capped by the
    page size, and the fill and the despeckle at their edges (widths off
    the warp and word grain and below 2n+1 columns, fewer than 5 rows,
-   masks all set and all clear, noise at 30/50/70% ink, n=1, pages up to
-   each kernel's widest), and every kernel at its widest input: the
-   despeckle, the global threshold and the transform on pages of 47,104
-   columns (the fill's widest row at n=10, the card's page limit), the
-   despeckle also at the widest page it takes and refusing one column
-   more, the line threshold and the paste on a line of 47,104 columns
-   and on one just past a strip.  (2c) each ablation
+   masks all set and all clear, noise at 30/50/70% ink, n=1, the fill's
+   rows around its one-CTA and cluster widths and one column past them),
+   lines of every height from 1 to 60 rows and of 290-300 rows, pasted
+   over overlapping boxes whose lines are not sorted by page, and every
+   kernel at its widest input: the fill (n=3 and n=10, gray and RGB),
+   the despeckle, the global threshold and the transform on pages of
+   120,000 columns (PDF's 200-inch page at 600 DPI; the fill and the
+   despeckle run as a wavefront of column strips past one CTA or
+   cluster), the despeckle also at the widest page one CTA takes and
+   one column more, the line threshold and the paste on a line of
+   120,000 columns and on one just past a tile.  (2c) each ablation
    build of K3 against its plain version at the same batch, then one
    run of the ablation tool
    (``archive_pdf_tools_tpu_torch/tools/threshold_ablate.py``) at batch 2.
@@ -145,7 +149,10 @@ def _bound(nbytes, ops):
 K1_OPS = 12         # sliding FIR and IIR sums, the division, the select
 K2_OPS = 25         # 22 neighbours, the threshold, the 2-bit state
 K4_OPS = 30         # a line's window sums and Sauvola test, a polarity
-K5_OPS = 2          # the owner test and the copy
+K5_OPS = 2          # the paste and the OR
+# K4's and K5's times in their former designs (one CTA a line walking its
+# rows; an atomicMax owner map), two runs of this script
+FORMER = 'former design, NVIDIA H100 80GB HBM3, 700.00 W: %s ms'
 DWT_OPS = 30        # 9/7 lifting in both directions, ICT, quantiser
 
 
@@ -178,10 +185,11 @@ def _max_err(got, ref):
 
 
 def _compare(name, kernel_fn, plain_fn, in_bytes, ops_per_out,
-             plain_reps=2):
+             plain_reps=2, before=None):
     """Kernel vs plain on the same inputs: bit-exact, with both times and
     the bound (``in_bytes`` read, the result's bytes written, and
-    ``ops_per_out`` operations an output element)."""
+    ``ops_per_out`` operations an output element); ``before``: an earlier
+    PR's kernel times, printed beside."""
     import torch
     got = kernel_fn()                    # warm-up + result
     ref = plain_fn()
@@ -193,8 +201,9 @@ def _compare(name, kernel_fn, plain_fn, in_bytes, ops_per_out,
     bound_ms, bound_by = _bound(in_bytes + _nbytes(got), ops_per_out
                                 * sum(t.numel() for t in outs))
     print('  %-38s max_abs_err=%d  kernel %.3f ms  plain %.3f ms  bound '
-          '%.4f ms (%s), kernel at %.1fx the bound'
-          % (name, err, ms, plain_ms, bound_ms, bound_by, ms / bound_ms))
+          '%.4f ms (%s), kernel at %.1fx the bound%s'
+          % (name, err, ms, plain_ms, bound_ms, bound_by, ms / bound_ms,
+             '' if before is None else '  (%s)' % before))
     if err != 0:
         raise SystemExit('FAIL: %s differs from its plain version' % name)
     return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
@@ -331,7 +340,8 @@ def phase_kernels(pages, wds):
                   lambda: lines_cuda.line_thresholds(gray, lines, WINDOW),
                   lambda: lines_cuda.line_thresholds_plain(gray, lines,
                                                            WINDOW),
-                  lines.total, K4_OPS)
+                  lines.total, K4_OPS,
+                  before=FORMER % '0.482 / 0.524')
     results['line_sauvola'] = (k4, [k4])
     ct, ci, counts = lines_cuda.line_thresholds(gray, lines, WINDOW)
     sel = D.line_selector(ct, ci, counts, lines)
@@ -341,7 +351,8 @@ def phase_kernels(pages, wds):
                    lambda: paste_cuda.paste_lines(ct, ci, lines, sel, gmask),
                    lambda: paste_cuda.paste_lines_plain(ct, ci, lines, sel,
                                                         gmask),
-                   _selected_bytes(lines, sel) + _nbytes(gmask), K5_OPS)]
+                   _selected_bytes(lines, sel) + _nbytes(gmask), K5_OPS,
+                   before=FORMER % '0.713 / 0.822')]
     # adversarial: every box grown 40 rows down, so neighbours overlap,
     # with a random selector
     grown = lines.boxes.copy()
@@ -353,7 +364,8 @@ def phase_kernels(pages, wds):
         'paste (overlaps, random selector)',
         lambda: paste_cuda.paste_lines(gct, gci, glines, gsel, gmask),
         lambda: paste_cuda.paste_lines_plain(gct, gci, glines, gsel, gmask),
-        _selected_bytes(glines, gsel) + _nbytes(gmask), K5_OPS))
+        _selected_bytes(glines, gsel) + _nbytes(gmask), K5_OPS,
+        before=FORMER % '0.848 / 0.832'))
     results['paste'] = (k5[0], k5)
     del ct, ci, gct, gci
 
@@ -500,14 +512,15 @@ def phase_odd_shapes():
         n_cases += 1
     # K1 rows wider than one CTA's shared memory, split over a cluster of
     # CTAs: the widest one-CTA strip and one column more, 19,370 columns
-    # (timed), the widest row the wrapper takes, and one column more,
-    # which it refuses
+    # (timed), the widest row a cluster takes, and one column more, which
+    # runs as the wavefront of strips
     for n in (3, 10):
         wmax = optimise_cuda.max_width(n)
-        one = wmax // optimise_cuda.MAX_CLUSTER
+        one = optimise_cuda.one_cta(n)
         for b, h, w, c in ((1, 64, one, 1), (1, 64, one + 1, 3),
                            (2, 400, 19370, 1), (1, 400, 19370, 3),
-                           (1, 16, wmax, 1)):
+                           (1, 16, wmax, 1), (1, 16, wmax + 1, 1),
+                           (2, 24, wmax + 1, 3)):
             mask = torch.from_numpy(rng.random((b, h, w)) < 0.3).to(dev)
             img = torch.from_numpy(rng.integers(
                 0, 256, (b, h, w) + ((c,) if c > 1 else ()),
@@ -522,14 +535,6 @@ def phase_odd_shapes():
                 _check_equal(what, optimise_cuda.optimise(mask, img, n),
                              opt_plain(mask, img, n))
             n_cases += 1
-        wide = torch.zeros((1, 2, wmax + 1), dtype=torch.bool, device=dev)
-        try:
-            optimise_cuda.optimise(wide, wide.to(torch.uint8), n)
-        except ValueError:
-            pass
-        else:
-            raise SystemExit('FAIL: optimise took %d columns at n=%d, past '
-                             'its limit' % (wmax + 1, n))
 
     # K3 where the window sum of squares passes 2^31 (dpi >= 728)
     bright = torch.from_numpy(np.stack([_bright_page(rng, 520, 640)
@@ -576,6 +581,7 @@ def phase_odd_shapes():
                 raise SystemExit('FAIL: paste changed a page without a '
                                  'selected line')
         n_cases += 4
+    n_cases += phase_line_shapes(rng, gray)
     empty = lines_cuda.RaggedLines.from_page_boxes([[]] * b, h, w, dev)
     ect, eci, _ = lines_cuda.line_thresholds(gray, empty, 31)
     _check_equal('paste with no lines',
@@ -610,17 +616,57 @@ def phase_odd_shapes():
     print('phase 2b: %d odd-shape cases, kernel == plain' % n_cases)
 
 
-# phase 2b's widest inputs: at least K1's widest row at n=10 (47,104
-# columns, 78 inches at 600 DPI), the card's page limit
-WIDEST = 47104
+def phase_line_shapes(rng, gray):
+    """K4 on lines of every height from 1 to 60 rows (1 to 60 distinct
+    vertical windows at window 31, 1 to 19 at window 101) and taller ones
+    up to 300 rows, as the kernel's units and window runs cut them; K5 on
+    overlapping boxes whose lines are not sorted by page."""
+    import torch
+    from archive_pdf_tools_tpu_torch.ops import lines_cuda, paste_cuda
+    dev = torch.device(DEV)
+    b, h, w = gray.shape
+    boxes = [[5 + (7 * k) % 400, 5 + (7 * k) % 400 + k, (37 * k) % 150,
+              (37 * k) % 150 + 40 + 5 * k] for k in range(1, 61)]
+    boxes += [[0, 300, 0, w], [100, 399, 33, 290], [350, 640, 1, 2],
+              [390, 690, 120, 121 + lines_cuda.TILE_COLS // 2]]
+    pages = [(3 * k) % b for k in range(len(boxes))]
+    lines = lines_cuda.RaggedLines(boxes, pages, b, h, w, dev)
+    runs = [lines_cuda.distinct_windows(bb - t, 101)
+            for t, bb, _l, _r in boxes]
+    print('  K4 lines of 1-60 and 290-300 rows: %d units, %d-%d distinct '
+          'windows a line at window 101'
+          % (len(lines_cuda.line_units(lines.boxes, 101)[0]), min(runs),
+             max(runs)))
+    n = 0
+    for window in (31, 101):
+        got = lines_cuda.line_thresholds(gray, lines, window)
+        _check_equal('line_sauvola lines of 1-300 rows window %d' % window,
+                     got, lines_cuda.line_thresholds_plain(gray, lines,
+                                                           window))
+        n += 1
+    # overlapping boxes, lines out of page order, a page with none
+    ct, ci, _ = got
+    gmask = torch.from_numpy(rng.random((b, h, w)) < 0.05).to(dev)
+    for sel in (np.ones(lines.n, np.int32),
+                rng.integers(0, 3, lines.n).astype(np.int32)):
+        _check_equal('paste overlapping lines out of page order',
+                     paste_cuda.paste_lines(ct, ci, lines, sel, gmask),
+                     paste_cuda.paste_lines_plain(ct, ci, lines, sel, gmask))
+        n += 1
+    return n
+
+
+# phase 2b's widest inputs: PDF's largest page, 200 inches, at 600 DPI
+WIDEST = 120000
 
 
 def phase_widest(rng):
-    """K2, K3 and B7 on pages of WIDEST columns, K2 also at the widest
-    page it takes and refusing one column more; K4 on a line of WIDEST
-    columns and on one just past a strip (K5 pasting both): each kernel
-    == its plain version, the page and line kernels timed.  Few rows, so
-    the plain versions stay quick."""
+    """K1 (n=3 and n=10, gray and RGB), K2, K3 and B7 on pages of
+    WIDEST columns, K2 also at the widest page one CTA takes and one
+    column more (the wavefront); K4 on a line of WIDEST columns and on
+    one just past a tile (K5 pasting both): each kernel == its plain
+    version, the page and line kernels timed.  Few rows, so the plain
+    versions stay quick."""
     import torch
     from archive_pdf_tools_tpu_torch.mrc import decompose as D
     from archive_pdf_tools_tpu_torch.ops import (denoise_cuda, threshold_cuda,
@@ -629,27 +675,36 @@ def phase_widest(rng):
     from archive_pdf_tools_tpu_torch.ops.denoise import \
         fast_mask_denoise_exact as den_plain
     from archive_pdf_tools_tpu_torch.ops.dwt97 import dwt97 as dwt_plain
+    from archive_pdf_tools_tpu_torch.ops import optimise_cuda
+    from archive_pdf_tools_tpu_torch.ops.optimise import optimise as opt_plain
     dev = torch.device(DEV)
     n = 0
     wmax = denoise_cuda.max_width()
-    for b, h, w in ((1, 16, 32769), (2, 32, WIDEST), (1, 16, wmax)):
+    for b, h, w in ((1, 16, 32769), (1, 16, wmax), (1, 16, wmax + 1),
+                    (2, 32, 47104), (1, 64, WIDEST)):
         mask = torch.from_numpy(rng.random((b, h, w)) < 0.5).to(dev)
-        what = 'despeckle %s' % ((b, h, w),)
-        if w == WIDEST:
+        what = 'despeckle %s, %d CTAs a row' % ((b, h, w),
+                                                denoise_cuda.strips(w))
+        if w in (47104, WIDEST):
             _compare(what, lambda: denoise_cuda.fast_mask_denoise(mask, 4, 2),
                      lambda: den_plain(mask, 4, 2), _nbytes(mask), K2_OPS)
         else:
             _check_equal(what, denoise_cuda.fast_mask_denoise(mask, 4, 2),
                          den_plain(mask, 4, 2))
         n += 1
-    wide = torch.zeros((1, 5, wmax + 1), dtype=torch.bool, device=dev)
-    try:
-        denoise_cuda.fast_mask_denoise(wide, 4, 2)
-    except ValueError:
-        pass
-    else:
-        raise SystemExit('FAIL: despeckle took %d columns, past its limit'
-                         % (wmax + 1))
+    # K1's wavefront: 16 rows of WIDEST columns, gray and RGB
+    for c in (1, 3):
+        mask = torch.from_numpy(rng.random((1, 16, WIDEST)) < 0.3).to(dev)
+        img = torch.from_numpy(rng.integers(
+            0, 256, (1, 16, WIDEST) + ((c,) if c > 1 else ()),
+            dtype=np.uint8)).to(dev)
+        for k in (3, 10):
+            _compare('optimise %s n=%d, %d CTAs a row'
+                     % (tuple(img.shape), k, optimise_cuda.strips(WIDEST, k)),
+                     lambda: optimise_cuda.optimise(mask, img, k),
+                     lambda: opt_plain(mask, img, k), _nbytes((mask, img)),
+                     K1_OPS)
+            n += 1
 
     page = np.stack([_stroke_page(rng, 48, WIDEST) for _ in range(2)])
     gray = torch.from_numpy(page).to(dev)
@@ -672,15 +727,15 @@ def phase_widest(rng):
                  _nbytes(x), DWT_OPS)
         n += 1
 
-    # K4: one line across the whole widest page, one just past a strip
-    # (MAX_LINE_WIDTH + 1 columns, two CTAs), beside an ordinary one
-    past = lines_cuda.MAX_LINE_WIDTH + 1
+    # K4: one line across the whole widest page, one just past a tile
+    # (TILE_COLS + 1 columns, two CTAs), beside an ordinary one
+    past = lines_cuda.TILE_COLS + 1
     boxes = [[4, 40, 0, WIDEST], [10, 22, 300, 300 + past],
              [20, 44, 1000, 3550]]
     lines = lines_cuda.RaggedLines(boxes, [0, 1, 1], 2, 48, WIDEST, dev)
-    strips, _ = lines_cuda.line_strips(lines.boxes, WINDOW)
-    print('  K4 widest lines: %d strips for lines of %s columns'
-          % (len(strips), [r - l for _t, _b, l, r in boxes]))
+    units, _ = lines_cuda.line_units(lines.boxes, WINDOW)
+    print('  K4 widest lines: %d units for lines of %s columns'
+          % (len(units), [r - l for _t, _b, l, r in boxes]))
     _compare('line_sauvola widest lines',
              lambda: lines_cuda.line_thresholds(gray, lines, WINDOW),
              lambda: lines_cuda.line_thresholds_plain(gray, lines, WINDOW),

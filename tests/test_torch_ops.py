@@ -150,20 +150,25 @@ def test_optimise_edges_match_jax(b, h, w, c, n, ink):
 
 @pytest.mark.parametrize('n', [1, 3, 10, 22])
 def test_optimise_kernel_layout_takes_wide_pages(n):
-    """The CUDA wrapper's split of a row over a cluster of CTAs: one CTA
-    up to the widest strip its shared memory holds, more past it, and
-    every width up to 19,370 columns (600-DPI A3 and wider) taken."""
+    """The CUDA wrapper's split of a row: one CTA up to the widest strip
+    its shared memory holds, a cluster of CTAs past it up to
+    ``max_width(n)``, and past that strips of one CTA each (the
+    wavefront), so every width is taken and its strips cover each column
+    once."""
     from archive_pdf_tools_tpu_torch.ops import optimise_cuda as oc
     wmax = oc.max_width(n)
-    one = wmax // oc.MAX_CLUSTER
-    assert wmax >= 19370
+    one = oc.one_cta(n)
+    assert wmax == oc.MAX_CLUSTER * one and wmax >= 19370
     assert oc.strips(one, n) == 1 and oc.strips(one + 1, n) == 2
     assert oc.strips(wmax, n) == oc.MAX_CLUSTER
-    assert oc.strips(wmax + 1, n) is None
-    for w in (1, 2550, 5100, 7000, 19370, wmax):
+    assert oc.strips(wmax + 1, n) == oc.MAX_CLUSTER + 1
+    for w in (1, 2550, 5100, 7000, 19370, wmax, wmax + 1, 47105, 65537,
+              120000, 10 ** 6):
         k = oc.strips(w, n)
         q = oc.pitch(-(-w // k))
-        assert k * q >= w and q <= oc.COLS * oc.MAX_THREADS
+        # strips [i q, i q + q) cover [0, w), the last one not empty
+        assert k * q >= w > (k - 1) * q
+        assert q <= one <= oc.COLS * oc.MAX_THREADS
         assert oc.walk_smem(q, n) <= oc.SMEM
 
 

@@ -12,9 +12,18 @@ whole-page plain version and, through it, with the JAX package:
   ``dwt97_cuda.HALO`` samples (and a halo one short goes wrong);
 - K3 (``csrc/blur_sauvola.cu``): blur tiles with a halo of r, then
   Sauvola column strips and row runs with a halo of o-1 / u;
-- K4 (``csrc/line_sauvola.cu``): wide lines split into column strips
-  (``lines_cuda.line_strips``), the window still clamped to the line;
-- K2's widest page (``denoise_cuda.max_width``).
+- K4 (``csrc/line_sauvola.cu``): lines cut into units of a row segment
+  and a column tile (``lines_cuda.line_units``), each unit's rows walked
+  in runs that share one vertical window (``lines_cuda.window_runs``),
+  the window still clamped to the line;
+- K5 (``csrc/paste.cu``): the paste tile by tile, the lines of a page
+  listed in document order (``paste_cuda.paste_plan``) and the selected
+  ones pasted;
+- K1 (``csrc/optimise.cu``) and K2 (``csrc/despeckle.cu``) past one CTA:
+  column strips run as a wavefront, handing over only halos (a halo one
+  short goes wrong), and K2's layout.
+
+Every comparison here is exact.
 """
 
 import numpy as np
@@ -31,7 +40,7 @@ from archive_pdf_tools_tpu_torch.ops import dwt97 as D
 from archive_pdf_tools_tpu_torch.ops import dwt97_cuda as DC
 from archive_pdf_tools_tpu_torch.ops import lines_cuda as LC
 from archive_pdf_tools_tpu_torch.ops import threshold_cuda as TC
-from archive_pdf_tools_tpu_torch.ops import denoise_cuda
+from archive_pdf_tools_tpu_torch.ops import denoise_cuda, paste_cuda
 from archive_pdf_tools_tpu_torch.ops.sauvola import (sauvola_counts,
                                                       sauvola_mask,
                                                       sauvola_sums,
@@ -247,54 +256,82 @@ def test_sauvola_plan_halos_reach_the_window():
     assert TC.MAX_WINDOW == 255 and not hasattr(TC, 'MAX_WIDTH')
 
 
-# --- K4: wide lines in column strips ------------------------------------------
+# --- K4: lines in units of a row segment x a column tile, rows in runs ------
 
-def lines_striped(gray, boxes, pages, window, max_width, k=0.1):
-    """``line_thresholds_plain`` as the kernel cuts lines into strips
-    (``line_strips``): each strip from its own columns plus its halo, the
-    window clamped to the line; the ink counts added up strip by strip."""
-    strips, loaded = LC.line_strips(boxes, window, max_width)
-    assert loaded <= max_width
+def ink_limits(s, q, cnt, k):
+    """The kernel's per-column form of the ink test of a run: for each
+    column (its window sums s, q and count), how many pixel values from 0
+    up are ink.  The ink values must be a prefix of 0..255 (the test is
+    monotone in the pixel), which is checked here."""
+    px = torch.arange(256, dtype=torch.uint8)[:, None]
+    ink = sauvola_test(px, s, q, cnt, k).to(torch.int64)    # (256, cols)
+    assert (ink[:-1] >= ink[1:]).all()
+    return ink.sum(0)
+
+
+def lines_in_units(gray, boxes, pages, window, tile=LC.TILE_COLS,
+                   seg=LC.SEG_ROWS, k=0.1):
+    """``line_thresholds_plain`` as the kernel cuts lines into units
+    (``line_units``) and walks each unit's rows in runs that share one
+    vertical window (``window_runs``): per run, the column sums of its
+    window over the unit's columns plus halo only, their prefix, each
+    column's ink limit (``ink_limits``) and every row of the run
+    thresholded against it; the inverse crop's sums derived from S and Q;
+    the ink counts added unit by unit."""
+    units, (tiles, segs) = LC.line_units(boxes, window, tile, seg)
     lines = LC.RaggedLines(boxes, pages, *gray.shape, device='cpu')
     out_t = torch.full((lines.total,), 7, dtype=torch.uint8)
     out_i = out_t.clone()
     counts = torch.zeros((lines.n, 2), dtype=torch.int32)
     o, u = (window + 1) // 2, window // 2
-    for i, c0, c1 in strips:
+    for i, y0, y1, c0, c1 in units:
         t, b, l, r = (int(v) for v in lines.boxes[i])
-        crop = gray[int(lines.pages[i]), t:b, l:r]
-        cnt = sauvola_counts(b - t, r - l, window, window, 'cpu')
-        xa, xb = max(c0 - o + 1, l) - l, min(c1 + u, r) - l
-        assert xb - xa <= loaded
-        for pol, (img, flat) in enumerate(((crop, out_t),
-                                           (255 - crop, out_i))):
-            s, s2 = sauvola_sums(img[:, xa:xb], window, window)
-            sl = slice(c0 - l - xa, c1 - l - xa)
-            m = sauvola_test(img[:, c0 - l:c1 - l], s[:, sl], s2[:, sl],
-                             cnt[:, c0 - l:c1 - l], k)
-            lines.crop(flat, i)[:, c0 - l:c1 - l] = m
-            counts[i, pol] += int(m.sum())
-    return lines, strips, out_t, out_i, counts
+        crop = gray[int(lines.pages[i]), t:b, l:r].to(torch.int64)
+        lc0, lc1 = max(c0 - o + 1, l), min(c1 + u, r)
+        assert lc1 - lc0 <= tile + window - 1
+        xs = torch.arange(c0, c1)
+        a = (xs - o + 1).clamp(min=l) - lc0
+        e = (xs + u).clamp(max=r - 1) + 1 - lc0
+        for ya, yb, lo, hi in LC.window_runs(t, b, y0, y1, window):
+            rows = crop[lo - t:hi - t + 1, lc0 - l:lc1 - l]
+            ps = torch.cat([torch.zeros(1, dtype=torch.int64),
+                            rows.sum(0).cumsum(0)])
+            pq = torch.cat([torch.zeros(1, dtype=torch.int64),
+                            (rows * rows).sum(0).cumsum(0)])
+            sw, qw = (ps[e] - ps[a])[None], (pq[e] - pq[a])[None]
+            cnt = ((hi - lo + 1) * (e - a))[None]
+            img = crop[ya - t:yb - t, c0 - l:c1 - l]
+            for pol, (px, s, q, flat) in enumerate((
+                    (img, sw, qw, out_t),
+                    (255 - img, 255 * cnt - sw, 65025 * cnt - 510 * sw + qw,
+                     out_i))):
+                m = px < ink_limits(s, q, cnt, k)[None]
+                lines.crop(flat, i)[ya - t:yb - t, c0 - l:c1 - l] = m
+                counts[i, pol] += int(m.sum())
+    return lines, units, out_t, out_i, counts
 
 
 @pytest.mark.parametrize('window,max_width', [(31, 40), (31, 31), (51, 90),
                                               (15, 16)])
 def test_line_strips_stitch_to_whole_lines(window, max_width):
+    """Column tiles of max_width output columns and row segments of 7
+    rows: stitched, == the whole-line plain version and == golden."""
     gray = torch.from_numpy(np.stack([synth_page(90, 300, seed=s)
                                       for s in range(2)]))
     boxes = np.array([[10, 40, 5, 295], [30, 31, 0, 300], [50, 90, 100, 139],
                       [0, 90, 280, 300], [60, 75, 7, 7 + max_width],
                       [20, 70, 40, 41 + max_width]])
     pages = np.array([0, 1, 0, 1, 1, 0])
-    lines, strips, ct, ci, counts = lines_striped(gray, boxes, pages, window,
-                                                  max_width)
+    lines, units, ct, ci, counts = lines_in_units(gray, boxes, pages, window,
+                                                  max_width, seg=7)
     ref = LC.line_thresholds_plain(gray, lines, window)
     assert torch.equal(ct, ref[0]) and torch.equal(ci, ref[1])
     assert torch.equal(counts, ref[2])
+    strips, _ = LC.line_strips(boxes, window, max_width)
     per_line = np.bincount(strips[:, 0], minlength=len(boxes))
     widths = boxes[:, 3] - boxes[:, 2]
-    assert ((per_line > 1) == (widths > max_width)).all()
-    assert per_line[4] == 1 and per_line[5] > 1
+    assert (per_line == -(-widths // max_width)).all()
+    assert per_line[4] == 1 and per_line[5] == 2
     for i, (t, b, l, r) in enumerate(boxes):
         g = gray[pages[i], t:b, l:r].numpy()
         assert (lines.crop(ct, i).numpy()
@@ -302,8 +339,8 @@ def test_line_strips_stitch_to_whole_lines(window, max_width):
 
 
 def test_line_of_20000_columns_matches_golden():
-    """A line far wider than one CTA takes (MAX_LINE_WIDTH), cut as the
-    kernel cuts it, held to the reference oracle on its crop."""
+    """A line far wider than one unit, cut as the kernel cuts it (tiles of
+    ``TILE_COLS``), held to the reference oracle on its crop."""
     rng = np.random.default_rng(11)
     w = 20000
     page = np.clip(rng.normal(200, 30, (1, 20, w)), 0, 255).astype(np.uint8)
@@ -311,9 +348,8 @@ def test_line_of_20000_columns_matches_golden():
         page[0, 5:15, x:x + 6] = rng.integers(20, 90)
     gray = torch.from_numpy(page)
     boxes, pages = np.array([[4, 16, 0, w]]), np.array([0])
-    lines, strips, ct, ci, counts = lines_striped(gray, boxes, pages, 101,
-                                                  LC.MAX_LINE_WIDTH)
-    assert len(strips) == -(-w // (LC.MAX_LINE_WIDTH - 100))
+    lines, units, ct, ci, counts = lines_in_units(gray, boxes, pages, 101)
+    assert len(units) == -(-w // LC.TILE_COLS)
     crop = page[0, 4:16]
     ref = golden.sauvola_mask_ref(crop, 101, 101, 0.1)
     refi = golden.sauvola_mask_ref(255 - crop, 101, 101, 0.1)
@@ -324,26 +360,316 @@ def test_line_of_20000_columns_matches_golden():
 
 @pytest.mark.parametrize('window', [1, 31, 101, 255])
 def test_line_strip_plan_covers_each_column_once(window):
+    """Every line, of any width and height, is cut into column tiles and
+    row segments that cover each of its pixels once; a tile's loaded
+    columns (its own plus the window's reach, clamped to the line) fit
+    the kernel's three column sums a thread."""
     o, u = (window + 1) // 2, window // 2
-    boxes = np.array([[0, 5, 0, 2550], [3, 9, 17, LC.MAX_LINE_WIDTH + 17],
-                      [0, 2, 5, LC.MAX_LINE_WIDTH + 6], [1, 4, 0, 47104],
-                      [0, 12, 100, 20100]])
+    boxes = np.array([[0, 5, 0, 2550], [3, 9, 17, 14529], [0, 2, 5, 14518],
+                      [1, 4, 0, 47104], [0, 12, 100, 20100],
+                      [0, 300, 7, 520], [2, 66, 0, 120000]])
     strips, loaded = LC.line_strips(boxes, window)
-    assert loaded <= LC.MAX_LINE_WIDTH
+    assert loaded <= LC.TILE_COLS + window - 1 <= 3 * 256
+    units, (tiles, segs) = LC.line_units(boxes, window)
+    assert tiles == -(-120000 // LC.TILE_COLS) and segs == -(-300 //
+                                                             LC.SEG_ROWS)
     for i, (t, b, l, r) in enumerate(boxes):
         mine = strips[strips[:, 0] == i]
         assert mine[0, 1] == l and mine[-1, 2] == r
         assert (mine[1:, 1] == mine[:-1, 2]).all() and (mine[:, 2] >
                                                         mine[:, 1]).all()
-        if r - l <= LC.MAX_LINE_WIDTH:
-            assert len(mine) == 1             # today's path: one CTA a line
+        assert len(mine) == -(-(r - l) // LC.TILE_COLS)
         for _, c0, c1 in mine:
             lo, hi = max(c0 - o + 1, l), min(c1 + u, r)
-            # the halo reaches every window of the strip's columns
+            # the halo reaches every window of the tile's columns
             assert lo == max(c0 - (o - 1), l) and hi == min(c1 - 1 + u + 1, r)
-            assert hi - lo <= LC.MAX_LINE_WIDTH
-    with pytest.raises(ValueError):
-        LC.line_strips(boxes, 101, max_width=100)
+        cover = np.zeros((b - t, r - l), np.int32)
+        for _, y0, y1, c0, c1 in units[units[:, 0] == i]:
+            cover[y0 - t:y1 - t, c0 - l:c1 - l] += 1
+            assert 0 < y1 - y0 <= LC.SEG_ROWS
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize('window', [31, 101, 255])
+def test_distinct_window_count(window):
+    """The distinct vertical windows of a line of h rows: the closed form,
+    a brute count of its rows' (top, bottom) pairs, and the runs the
+    kernel walks, for h = 1..300."""
+    o, u = (window + 1) // 2, window // 2
+    for h in range(1, 301):
+        t, b = 5, 5 + h
+        pairs = {(max(y - o + 1, t), min(y + u, b - 1)) for y in range(t, b)}
+        runs = LC.window_runs(t, b, t, b, window)
+        assert LC.distinct_windows(h, window) == len(pairs) == len(runs)
+        assert runs[0][0] == t and runs[-1][1] == b
+        assert all(p[1] == q[0] for p, q in zip(runs, runs[1:]))
+        for ya, yb, lo, hi in runs:
+            assert all((max(y - o + 1, t), min(y + u, b - 1)) == (lo, hi)
+                       for y in range(ya, yb))
+    assert LC.distinct_windows(51, 101) == 1
+    assert LC.distinct_windows(52, 101) == 3
+
+
+def test_line_units_match_golden_and_pallas_interpret():
+    """Lines of 1-60 rows and one of 100, cut into units of 16 rows x 48
+    columns and walked in window runs (1, 1 and 3 distinct windows on the
+    three short lines at window 51, 100 on the tall one), stitched: ==
+    golden
+    and == the JAX package's Pallas kernel in interpret mode."""
+    from archive_pdf_tools_tpu.ops.lines_pallas import line_thresholds_pallas
+    gray = np.stack([synth_page(140, 200, seed=s) for s in range(2)])
+    boxes = np.array([[3, 4, 10, 190], [10, 36, 0, 120], [40, 67, 30, 200],
+                      [60, 111, 5, 99], [80, 140, 100, 150],
+                      [8, 108, 150, 200]])
+    pages = np.array([1, 0, 1, 0, 0, 1])
+    window = 51
+    lines, units, ct, ci, counts = lines_in_units(
+        torch.from_numpy(gray), boxes, pages, window, tile=48, seg=16)
+    runs = [len(LC.window_runs(t, b, t, b, window)) for t, b, _l, _r in boxes]
+    assert runs == [LC.distinct_windows(b - t, window)
+                    for t, b, _l, _r in boxes]
+    assert runs[:3] == [1, 1, 3] and runs[5] > 60
+    th, ti, ones, ones_inv = line_thresholds_pallas(
+        gray, boxes.T.astype(np.int32), pages.astype(np.int32), window, 0.1,
+        interpret=True)
+    th, ti = np.asarray(th), np.asarray(ti)
+    for i, (t, b, l, r) in enumerate(boxes):
+        crop = gray[pages[i], t:b, l:r]
+        ref = golden.sauvola_mask_ref(crop, window, window, 0.1)
+        refi = golden.sauvola_mask_ref(255 - crop, window, window, 0.1)
+        assert (lines.crop(ct, i).numpy() == ref).all(), i
+        assert (lines.crop(ci, i).numpy() == refi).all(), i
+        off = t % 8           # Pallas crop rows are 8-aligned
+        assert (lines.crop(ct, i).numpy() == th[i, off:off + b - t, l:r]).all()
+        assert (lines.crop(ci, i).numpy() == ti[i, off:off + b - t, l:r]).all()
+    assert (counts.numpy()[:, 0] == np.asarray(ones)[:len(boxes)]).all()
+    assert (counts.numpy()[:, 1] == np.asarray(ones_inv)[:len(boxes)]).all()
+
+
+# --- K5: the paste in tiles, lines listed per page in document order --------
+
+def _plan(plan, batch):
+    """``paste_plan`` read back: the page starts and, per line, (t, b, l,
+    r, crop offset, line index)."""
+    plan = np.asarray(plan)
+    head = -(-(batch + 1) // 4) * 4
+    recs = plan[head:].view(np.uint32).astype(np.int64).reshape(-1, 8)
+    return plan[:batch + 1], [(int(t), int(b), int(l), int(r),
+                               int(lo | hi << 32), int(i))
+                              for t, b, l, r, lo, hi, i, _ in recs]
+
+
+def paste_tiled(ct, ci, lines, selector, gmask, tile=(32, 512)):
+    """``paste_lines_plain`` as the kernel tiles the page: per tile, the
+    lines of its page from ``lines.paste_plan`` (in document order) that
+    are selected and meet it, each clipped to the tile and overwriting it
+    in turn, then the global mask OR-ed in."""
+    b, h, w = gmask.shape
+    starts, recs = _plan(lines.paste_plan, b)
+    out = torch.zeros((b, h, w), dtype=torch.bool)
+    for p in range(b):
+        mine = recs[starts[p]:starts[p + 1]]
+        for y0 in range(0, h, tile[0]):
+            y1 = min(y0 + tile[0], h)
+            for x0 in range(0, w, tile[1]):
+                x1 = min(x0 + tile[1], w)
+                buf = torch.zeros((y1 - y0, x1 - x0), dtype=torch.uint8)
+                for t, bb, l, r, off, i in mine:
+                    if selector[i] == 0:
+                        continue
+                    ya, yb = max(t, y0), min(bb, y1)
+                    xa, xb = max(l, x0), min(r, x1)
+                    if ya >= yb or xa >= xb:
+                        continue
+                    src = ci if selector[i] == 2 else ct
+                    crop = src[off:off + (bb - t) * (r - l)].reshape(
+                        bb - t, r - l)
+                    buf[ya - y0:yb - y0, xa - x0:xb - x0] = \
+                        crop[ya - t:yb - t, xa - l:xb - l]
+                out[p, y0:y1, x0:x1] = (buf != 0) | gmask[p, y0:y1, x0:x1]
+    return out
+
+
+# overlapping boxes whose lines are not sorted by page; page 3 has none
+TILE_BOXES = np.array([[20, 60, 100, 250], [0, 45, 0, 90], [35, 80, 60, 220],
+                       [70, 115, 5, 245], [30, 70, 80, 180], [9, 40, 30, 200],
+                       [50, 119, 0, 250], [2, 12, 240, 250]])
+TILE_PAGES = np.array([0, 2, 0, 1, 0, 1, 2, 0])
+
+
+@pytest.mark.parametrize('selector,tile', [
+    ([1, 2, 1, 0, 2, 1, 1, 2], (32, 512)), ([2, 1, 2, 1, 1, 2, 0, 1], (8, 48)),
+    ([1, 1, 1, 1, 1, 1, 1, 1], (5, 17)), ([0, 0, 0, 0, 0, 0, 0, 0], (8, 48))])
+def test_paste_tiles_match_scan_and_pallas_interpret(selector, tile):
+    from archive_pdf_tools_tpu.ops.lines_pallas import line_thresholds_pallas
+    from archive_pdf_tools_tpu.ops.paste_pallas import (build_paste_plan,
+                                                        paste_crops_pallas)
+    import jax.numpy as jnp
+    selector = np.array(selector, np.int32)
+    bsz, h, w = 4, 120, 250
+    gray = np.stack([synth_page(h, w, seed=s) for s in range(bsz)])
+    gmask = np.zeros((bsz, h, w), bool)
+    gmask[:, 100:104, 10:50] = True
+    lines = LC.RaggedLines(TILE_BOXES, TILE_PAGES, bsz, h, w, device='cpu')
+    ct, ci, _ = LC.line_thresholds_plain(torch.from_numpy(gray), lines, 51)
+    got = paste_tiled(ct, ci, lines, selector, torch.from_numpy(gmask), tile)
+    scan = paste_cuda.paste_lines_plain(ct, ci, lines, selector,
+                                        torch.from_numpy(gmask))
+    assert torch.equal(got, scan)
+    boxes = TILE_BOXES.T.astype(np.int32)
+    th, ti, _o, _oi = line_thresholds_pallas(
+        gray, boxes, TILE_PAGES.astype(np.int32), 51, 0.1, interpret=True)
+    plan = build_paste_plan(boxes, TILE_PAGES.astype(np.int32), selector, bsz)
+    pallas = np.asarray(paste_crops_pallas(
+        th[:len(selector)], ti[:len(selector)],
+        *(jnp.asarray(plan[k]) for k in
+          ('li', 't', 'b', 'l', 'r', 'sel', 'gpage', 'gfirst')),
+        jnp.asarray(gmask), interpret=True))
+    assert (got.numpy() == pallas).all()
+    assert (got.numpy()[3] == gmask[3]).all()
+
+
+def test_paste_plan_lists_each_page_in_document_order():
+    lines = LC.RaggedLines(TILE_BOXES, TILE_PAGES, 4, 120, 250, device='cpu')
+    plan = lines.paste_plan.numpy()
+    assert plan.dtype == np.int32 and len(plan) == 8 + 8 * 8
+    starts, recs = _plan(plan, 4)
+    assert starts.tolist() == [0, 4, 6, 8, 8]
+    order = [0, 2, 4, 7, 3, 5, 1, 6]
+    assert [r[:4] for r in recs] == [tuple(TILE_BOXES[i]) for i in order]
+    assert [r[4] for r in recs] == [int(lines.offsets[i]) for i in order]
+    assert [r[5] for r in recs] == order
+    empty = LC.RaggedLines([], [], 3, 120, 250, device='cpu')
+    assert empty.paste_plan.numpy().tolist() == [0] * 4
+    # a crop offset past 2^32 keeps its high word (no crop is allocated)
+    huge = LC.RaggedLines([[0, 70000, 0, 70000], [5, 9, 3, 8]], [0, 0], 1,
+                          70000, 70000, device='cpu')
+    assert _plan(huge.paste_plan, 1)[1][1][4:] == (70000 * 70000, 1)
+
+
+# --- K1: the wavefront of column strips ----------------------------------------
+
+def _box_sums(a, n):
+    """Sums of a (B, H, W, C) over rows [y-n, y+n) x cols [x-n, x+n),
+    clamped to the page."""
+    b, h, w, c = a.shape
+    p = np.zeros((b, h + 1, w + 1, c), np.int64)
+    p[:, 1:, 1:] = a.cumsum(1).cumsum(2)
+    ya, yb = np.clip(np.arange(h) - n, 0, h), np.clip(np.arange(h) + n, 0, h)
+    xa, xb = np.clip(np.arange(w) - n, 0, w), np.clip(np.arange(w) + n, 0, w)
+    return (p[:, yb][:, :, xb] - p[:, ya][:, :, xb] - p[:, yb][:, :, xa]
+            + p[:, ya][:, :, xa])
+
+
+def optimise_wavefront(mask, img, n, strip, halo):
+    """``ops/optimise.py`` as the wavefront cuts a row: the FIR sums of
+    the whole page (the pre-pass), then row by row, strip by strip, each
+    strip's IIR sums from only its own colI and the ``halo`` columns of
+    colI its left neighbour hands over after the row above."""
+    gray = img.ndim == 3
+    x = (img[..., None] if gray else img).astype(np.int64)
+    m = mask[..., None].astype(np.int64)
+    b, h, w, c = x.shape
+    fir_val, fir_cnt = _box_sums(x * m, n), _box_sums(m, n)
+    out = np.zeros_like(x)
+    col_i = np.zeros((b, w, c), np.int64)
+    for y in range(h):
+        for xs in range(0, w, strip):
+            xe = min(xs + strip, w)
+            seen = np.zeros_like(col_i)
+            lo = max(xs - halo, 0)
+            seen[:, lo:xe] = col_i[:, lo:xe]
+            pref = np.concatenate([np.zeros((b, 1, c), np.int64),
+                                   seen.cumsum(1)], 1)
+            cols = np.arange(xs, xe)
+            a = np.maximum(cols - n, 0)
+            iir = pref[:, cols] - pref[:, a]
+            cnt = fir_cnt[:, y, xs:xe] + min(y, n) * (cols - a)[None, :, None]
+            val = fir_val[:, y, xs:xe] + iir
+            filled = np.where(cnt > 0, val // np.maximum(cnt, 1), 0)
+            out[:, y, xs:xe] = np.where(m[:, y, xs:xe] > 0, x[:, y, xs:xe],
+                                        filled)
+        col_i += out[:, y]
+        if y >= n:
+            col_i -= out[:, y - n]
+    out = out.astype(np.uint8)
+    return out[..., 0] if gray else out
+
+
+@pytest.mark.parametrize('n,c,strip', [(1, 1, 16), (3, 1, 23), (3, 3, 40),
+                                       (10, 1, 40), (10, 3, 31),
+                                       (22, 1, 40), (22, 3, 37)])
+def test_optimise_wavefront_strips_match_jax(n, c, strip):
+    """Strips of 16-40 columns with a halo of n, stitched row by row in
+    wavefront order: == the JAX package's optimise; a halo of n-1 is
+    not."""
+    from archive_pdf_tools_tpu.ops.optimise import optimise as jax_optimise
+    rng = np.random.default_rng(n * 10 + c)
+    h, w = 30, 130
+    mask = rng.random((2, h, w)) < 0.3
+    img = rng.integers(0, 256, (2, h, w) + ((c,) if c > 1 else ()),
+                       dtype=np.uint8)
+    ref = np.asarray(jax_optimise(mask, img, n))
+    assert (optimise_wavefront(mask, img, n, strip, n) == ref).all()
+    assert not (optimise_wavefront(mask, img, n, strip, n - 1) == ref).all()
+
+
+# --- K2: the wavefront of column strips ----------------------------------------
+
+def despeckle_strips(mask, strip, halo=2, mincnt=4, state=True):
+    """The exact despeckle (n = 2) as the wavefront cuts a row: strip by
+    strip, each from its start state (the final bits of the two columns
+    left of it in this row, from its left neighbour) and the final rows
+    y-1 and y-2 over its own columns plus ``halo`` on each side; the
+    original rows are inputs."""
+    m = np.asarray(mask).astype(np.int64)
+    f = np.zeros_like(m)
+    b, h, w = m.shape
+    for p in range(b):
+        for y in range(h):
+            for xs in range(0, w, strip):
+                xe = min(xs + strip, w)
+                top = np.zeros((2, w + 4), np.int64)   # 2 zero columns a side
+                lo, hi = max(xs - halo, 0), min(xe + halo, w)
+                if y >= 2:
+                    top[:, lo + 2:hi + 2] = f[p, y - 2:y, lo:hi]
+                p1 = f[p, y, xs - 1] if xs >= 1 and state else 0
+                p2 = f[p, y, xs - 2] if xs >= 2 and state else 0
+                for x in range(xs, xe):
+                    v = m[p, y, x]
+                    if v and 2 <= y < h - 2 and 2 <= x < w - 2:
+                        cnt = (top[:, x:x + 5].sum()
+                               + m[p, y + 1:y + 3, x - 2:x + 3].sum()
+                               + m[p, y, x + 1:x + 3].sum() + p1 + p2)
+                        v = int(cnt >= mincnt)
+                    f[p, y, x] = v
+                    p1, p2 = v, p1
+    return f.astype(bool)
+
+
+@pytest.mark.parametrize('strip,ink', [(32, 0.5), (17, 0.3), (40, 0.7),
+                                       (5, 0.5)])
+def test_despeckle_wavefront_strips_match_golden(strip, ink):
+    """Strips handing over their end state and final-row edge columns:
+    == golden's despeckle and == the JAX package's."""
+    from archive_pdf_tools_tpu.ops.denoise import (
+        fast_mask_denoise_exact as jax_denoise)
+    mask = np.random.default_rng(strip).random((2, 24, 96)) < ink
+    ref = np.stack([golden.fast_mask_denoise_ref(mk, 4, 2) for mk in mask])
+    got = despeckle_strips(mask, strip)
+    assert (got == ref).all()
+    assert (got == np.asarray(jax_denoise(mask, 4, 2))).all()
+
+
+def test_despeckle_wavefront_needs_both_hand_overs():
+    """Strips of 4 columns: a halo of one final-row column, or a start
+    state not taken from the left strip, goes wrong."""
+    rng = np.random.default_rng(8)
+    mask = rng.random((3, 24, 64)) < 0.4
+    ref = np.stack([golden.fast_mask_denoise_ref(mk, 4, 2) for mk in mask])
+    assert (despeckle_strips(mask, 4) == ref).all()
+    assert not (despeckle_strips(mask, 4, halo=1) == ref).all()
+    assert not (despeckle_strips(mask, 4, state=False) == ref).all()
 
 
 # --- K2: the widest page ------------------------------------------------------
@@ -355,7 +681,18 @@ def test_despeckle_takes_the_widest_pages():
     assert denoise_cuda.walk_layout(32769) == (544, 2)
     assert denoise_cuda.walk_layout(47104) == (736, 2)
     assert denoise_cuda.walk_layout(denoise_cuda.max_width()) == (1024, 2)
-    for w in (1, 31, 33, 2550, 32768, 32769, 47104, 65536):
+    # past one CTA: strips of at most 1,024 words, one word a thread
+    assert denoise_cuda.strips(65536) == 1
+    assert denoise_cuda.strips(65537) == 3
+    assert denoise_cuda.walk_layout(65537) == (704, 1)
+    assert denoise_cuda.strips(120000) == 4
+    assert denoise_cuda.walk_layout(120000) == (960, 1)
+    for w in (1, 31, 33, 2550, 32768, 32769, 47104, 65536, 65537, 120000,
+              10 ** 6):
         threads, wpt = denoise_cuda.walk_layout(w)
+        k = denoise_cuda.strips(w)
         assert threads % 32 == 0 and threads <= denoise_cuda.MAX_THREADS
-        assert 32 * wpt * threads >= w > 32 * wpt * (threads - 32)
+        # the strips cover each column once, the last one not empty
+        assert 32 * wpt * threads * k >= w > 32 * wpt * threads * (k - 1)
+        if k == 1:
+            assert 32 * wpt * threads >= w > 32 * wpt * (threads - 32)
