@@ -6,8 +6,9 @@ JAX package's (``cli/recode_pdf.py:9-191``: ``build_parser``,
 ``resolve_compression_flags``), kept by hand.  ``--device`` picks the
 torch device (default the first GPU; ``cpu`` runs the plain PyTorch
 versions of the kernels).  With ``--from-pdf`` and no ``--hocr-file``,
-the input's own text layer is extracted as hOCR first.  Flags the port
-does not cover yet end the run with an error naming the flag.
+the input's own text layer is extracted as hOCR first.  Every flag of
+the JAX package's ``recode_pdf`` runs; ``--profile DIR`` writes a
+torch.profiler Chrome trace, ``DIR/trace.json``.
 """
 
 import argparse
@@ -114,8 +115,8 @@ def build_parser():
                       help='Reuse per-page artifacts already present in '
                            '--out-dir (checkpoint/resume)')
     misc.add_argument('--profile', type=str, default=None, metavar='DIR',
-                      help='Write a jax.profiler trace of the compression '
-                           'pass to DIR')
+                      help='Write a torch.profiler trace of the '
+                           'compression pass to DIR/trace.json')
 
     comp = parser.add_argument_group('Compression')
     comp.add_argument('-m', '--image-mode', type=int, default=IMAGE_MODE_MRC,
@@ -292,7 +293,9 @@ def _run_recode(args):
         batch_pages=args.batch_pages,
         exact_denoise=not args.approx_denoise,
         resume=args.resume, profile_dir=args.profile,
-        jbig2_symbol_mode=args.jbig2_symbol_coding != 'off',
+        jbig2_symbol_mode={'off': False, 'on': True, 'auto': 'auto',
+                           'lossy': 'lossy',
+                           'refine': 'refine'}[args.jbig2_symbol_coding],
         jbig2_bands=args.jbig2_bands, device=args.device)
 
 

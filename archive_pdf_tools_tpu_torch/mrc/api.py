@@ -1,11 +1,13 @@
 """High-level MRC decomposition API on torch tensors.
 
 Counterpart of the JAX package's ``mrc/api.py`` (``decompose_masks``,
-``decompose_layers``), with the semantics of its Pallas path, which are
-the reference's (``mrc.py:188-270``): each hOCR line's crop is
-thresholded at both polarities and counted whole, the selected crops are
-pasted in document order (the last selected line wins an overlap), then
-the global threshold is OR-ed in and the mask despeckled.
+``decompose_layers``, and the reference API's ``decompose_pages`` and
+``create_mrc_hocr_components`` over them), with the semantics of its
+Pallas path, which are the reference's (``mrc.py:188-270``): each hOCR
+line's crop is thresholded at both polarities and counted whole, the
+selected crops are pasted in document order (the last selected line wins
+an overlap), then the global threshold is OR-ed in and the mask
+despeckled.
 
 The line crops are ragged (``ops/lines_cuda.RaggedLines``), so unlike
 the JAX package there are no height buckets, no host patch path for
@@ -49,17 +51,22 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
     """Mask phase for a uniform batch.
 
     np_images: list of uint8 arrays, all (H, W) gray or (H, W, 3) RGB of
-    identical shape; word_datas: the hOCR word data of each page (line
-    boxes are divided by ``downsample`` when the pages were).  Returns
+    identical shape, or a uint8 (B, H, W[, 3]) tensor; word_datas: the
+    hOCR word data of each page (line boxes are divided by
+    ``downsample`` when the pages were).  Returns
     (bool (B, H, W) mask, uint8 page tensor), both on ``device``
     (default the first GPU; ``'cpu'`` runs the plain PyTorch versions).
 
     Timing keys: ``grey_conversion`` (RGB), ``hocr_mask_gen`` (line
     preparation, line thresholds, selection), ``threshold`` (global
-    threshold and the ordered paste), ``fast_denoise``."""
+    threshold and the ordered paste), ``fast_denoise`` (``denoise`` for
+    bregman)."""
     dev = resolve_device(device)
     td = TimingData(timing_data)
-    imgs = np.stack(np_images)
+    if isinstance(np_images, torch.Tensor):
+        imgs = np_images
+    else:
+        imgs = np.stack(np_images)
     rgb = imgs.ndim == 4
     h, w = imgs.shape[1], imgs.shape[2]
     window = sauvola_window(dpi)
@@ -70,7 +77,7 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
     prep_dt = _time.time() - tl0
 
     t0 = _time.time()
-    dev_imgs = torch.from_numpy(imgs).to(dev)
+    dev_imgs = torch.as_tensor(imgs).to(dev)
     if rgb:
         gray = D.gray_601(dev_imgs)
         synchronize(dev)
@@ -98,7 +105,8 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
         t0 = _time.time()
         mask = D.denoise_mask(mask, denoise_mask, exact_denoise)
         synchronize(dev)
-        td.add('fast_denoise', t0)
+        td.add('fast_denoise' if denoise_mask == DENOISE_FAST else 'denoise',
+               t0)
     return mask, dev_imgs
 
 
@@ -144,3 +152,48 @@ def _downsample(layer, factor, errors):
     if not ok and errors is not None:
         errors.add(RECODE_RUNTIME_WARNING_TOO_SMALL_TO_DOWNSAMPLE)
     return out
+
+
+def decompose_pages(np_images, word_datas, dpi=None, downsample=None,
+                    bg_downsample=None, fg_downsample=None,
+                    denoise_mask=DENOISE_FAST, exact_denoise=True,
+                    timing_data=None, errors=None, device=None):
+    """One-call batched decomposition of a uniform batch: (masks, fgs,
+    bgs) as numpy arrays (bool (B, H, W), uint8 layers)."""
+    mask, dev_imgs = decompose_masks(
+        np_images, word_datas, dpi=dpi, downsample=downsample,
+        denoise_mask=denoise_mask, exact_denoise=exact_denoise,
+        timing_data=timing_data, device=device)
+    fg, bg = decompose_layers(mask, dev_imgs, bg_downsample=bg_downsample,
+                              fg_downsample=fg_downsample,
+                              timing_data=timing_data, errors=errors)
+    return mask.cpu().numpy(), fg, bg
+
+
+def create_mrc_hocr_components(image, hocr_word_data, dpi=None,
+                               downsample=None, bg_downsample=None,
+                               fg_downsample=None, denoise_mask=None,
+                               timing_data=None, errors=None,
+                               exact_denoise=True, device=None):
+    """Generator equivalent of the reference API (``mrc.py:334``): yields
+    the mask, then the foreground, then the background, as numpy arrays,
+    for one PIL image page.  ``denoise_mask=None`` is no despeckle, as
+    in the reference."""
+    if image.mode not in ('L', 'RGB'):
+        t0 = _time.time()
+        image = image.convert('RGB')
+        if timing_data is not None:
+            timing_data.append(('grey_conversion', _time.time() - t0))
+
+    mask, dev_imgs = decompose_masks(
+        [np.asarray(image)], [hocr_word_data], dpi=dpi,
+        downsample=downsample, denoise_mask=denoise_mask or DENOISE_NONE,
+        exact_denoise=exact_denoise, timing_data=timing_data, device=device)
+
+    yield mask[0].cpu().numpy()
+
+    fg, bg = decompose_layers(mask, dev_imgs, bg_downsample=bg_downsample,
+                              fg_downsample=fg_downsample,
+                              timing_data=timing_data, errors=errors)
+    yield fg[0]
+    yield bg[0]

@@ -3,21 +3,23 @@
 Counterpart of the JAX package's ``mrc/decompose.py``: gray conversion,
 the noise estimate and its blur taps, the global threshold (pre-blur +
 Sauvola, k=0.34), the host line-selection heuristic, the mask despeckle
-and the fg/bg radiate fills.  Each kernel stage calls a wrapper that
-runs the hand-written CUDA kernel for a CUDA tensor and the plain
-PyTorch version for a CPU tensor.
+(exact, one-pass or TV) and the fg/bg radiate fills.  Each kernel stage
+calls a wrapper that runs the hand-written CUDA kernel for a CUDA tensor
+and the plain PyTorch version for a CPU tensor.
 """
 
 import numpy as np
 import torch
 
-from ..const import DENOISE_FAST, DENOISE_NONE
+from ..const import DENOISE_BREGMAN, DENOISE_FAST
 from ..ops.sigma import estimate_noise
 from ..ops.sigma_np import estimate_sigma_np
 from ..ops.threshold_cuda import (MAX_BLUR_RADIUS, RADIUS_BUCKETS,
                                   blur_sauvola)
+from ..ops.denoise import fast_mask_denoise_jacobi
 from ..ops.denoise_cuda import fast_mask_denoise
 from ..ops.optimise_cuda import optimise
+from ..ops.tv import denoise_bregman
 
 
 def gray_601(img_rgb):
@@ -71,8 +73,12 @@ def global_mask(gray, window, taps=None):
     if taps is not None:
         return blur_sauvola(gray, taps, window), None
     sigma_est = estimate_noise(gray)
-    taps = blur_weights_from_sigma(sigma_est, pick_blur_radius(sigma_est))
-    return blur_sauvola(gray, taps.contiguous(), window), sigma_est
+    # the taps are made on the host: exp and the normalising sum then
+    # round alike for the card and the CPU, whose masks so agree
+    taps = blur_weights_from_sigma(sigma_est.cpu(),
+                                   pick_blur_radius(sigma_est))
+    return (blur_sauvola(gray, taps.to(gray.device).contiguous(), window),
+            sigma_est)
 
 
 def select_lines(ones, ones_inv, size, sigma_fn, n_lines):
@@ -166,15 +172,16 @@ def line_selector(crops_t, crops_i, counts, lines):
 
 
 def denoise_mask(mask, mode, exact=True):
-    """Mask despeckle dispatch (``mrc.py:384-396``)."""
-    if mode is None or mode == DENOISE_NONE:
-        return mask
-    if mode != DENOISE_FAST:
-        raise NotImplementedError('--denoise-mask %s is not ported; use '
-                                  'fast or none' % mode)
-    if not exact:
-        raise NotImplementedError('--approx-denoise is not ported')
-    return fast_mask_denoise(mask, 4, 2)
+    """Mask despeckle dispatch (``mrc.py:384-396``): fast is the exact
+    despeckle kernel, or with ``exact=False`` the one-pass approximation;
+    bregman the TV denoise; anything else keeps the mask."""
+    if mode == DENOISE_FAST:
+        if not exact:
+            return fast_mask_denoise_jacobi(mask, 4, 2)
+        return fast_mask_denoise(mask, 4, 2)
+    if mode == DENOISE_BREGMAN:
+        return denoise_bregman(mask)
+    return mask
 
 
 def fg_layer(mask, img):

@@ -1,6 +1,6 @@
-"""Exact mask despeckle, plain PyTorch (counterpart of the JAX package's
-``ops/denoise.py:fast_mask_denoise_exact``; reference
-``optimiser.pyx:436-472``).
+"""Mask despeckle, plain PyTorch (counterpart of the JAX package's
+``ops/denoise.py``: ``fast_mask_denoise_exact`` and
+``fast_mask_denoise_jacobi``; reference ``optimiser.pyx:436-472``).
 
 Scanning the interior in row-major order, a set pixel survives iff its
 (2n+1)^2 neighbourhood in the *partly updated* mask holds at least
@@ -17,6 +17,10 @@ compositions (``torch.gather``) applied to the start state 0 gives the
 exact sequential result.  Rows are an outer Python loop.  Border rows
 and columns (< n, >= h-n / w-n) and zero pixels keep their value.  This
 is the CPU path and the oracle of ``csrc/despeckle.cu``.
+
+``fast_mask_denoise_jacobi`` (``--approx-denoise``) is the one-pass
+approximation: the neighbourhood counts of the unmodified mask, exact
+integer window sums on the tensor's device (torch ops on the card too).
 """
 
 import torch
@@ -64,3 +68,17 @@ def fast_mask_denoise_exact(mask, mincnt=4, n_size=2):
         if y >= n:
             colsum -= out[:, y - n]
     return out.to(torch.bool)
+
+
+def fast_mask_denoise_jacobi(mask, mincnt=4, n_size=2):
+    """One-pass despeckle on the original neighbourhood counts: a set
+    pixel survives iff its (2n+1)^2 window holds at least ``mincnt``
+    other set pixels; pixels within n of an edge keep their value.
+    mask: bool (B, H, W) -> bool."""
+    n = int(n_size)
+    h, w = mask.shape[-2], mask.shape[-1]
+    cnt = box_sum_2d(mask.to(torch.int32), (-n, n + 1), (-n, n + 1)) - 1
+    rows = torch.arange(h, device=mask.device)[:, None]
+    cols = torch.arange(w, device=mask.device)
+    interior = ((rows >= n) & (rows < h - n)) & ((cols >= n) & (cols < w - n))
+    return mask & (~interior | (cnt >= mincnt))

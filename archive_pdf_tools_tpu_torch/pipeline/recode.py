@@ -1,20 +1,20 @@
 """recode(): the end-to-end document pipeline on torch tensors.
 
-Counterpart of the JAX package's ``pipeline/recode.py`` for its main
-path: an image stack or an existing PDF (``from_pdf``) plus hOCR, MRC
-mode, with optional page and layer downsampling, and the JPEG2000
-layers through Pillow or the in-tree encoder (``-J tpu``, whose
-transform runs on the device).  Pass 1 writes one invisible-text page
-per hOCR page; pass 2 groups the pages into batches of equal
-shape/mode/dpi on a loader thread, runs the MRC decomposition of each
-batch on the device (``mrc/api.py``), encodes mask/fg/bg on a host
-thread pool while the next batch computes, and inserts the encoded
-streams in page order, so xref numbering (and the output bytes) never
-depend on thread completion order.  The PDF names this engine
-(``PRODUCER``) in Info and XMP.
-
-Options the port does not cover yet raise ``NotImplementedError`` naming
-the flag; nothing silently runs something else.
+Counterpart of the JAX package's ``pipeline/recode.py``, option for
+option: an image stack or an existing PDF (``from_pdf``) plus hOCR.
+Pass 1 writes one invisible-text page per hOCR page.  Pass 2, in MRC
+mode, groups the pages into batches of equal shape/mode/dpi on a loader
+thread, runs the MRC decomposition of each batch on the device
+(``mrc/api.py``; ``--grayscale-pdf`` converts RGB batches there first),
+encodes mask/fg/bg on a host thread pool while the next batch computes
+(JBIG2 generic, symbol-coded or in bands; JPEG2000 through Pillow or the
+in-tree encoder, ``-J tpu``, whose transform runs on the device), and
+inserts the encoded streams in page order, so xref numbering (and the
+output bytes) never depend on thread completion order.  ``--bw-pdf``
+inserts each page's inverted mask alone; image modes 0 and 1 pass a
+source PDF's images through or re-encode its rendered pages; with
+``profile_dir`` pass 2 runs under ``torch.profiler``.  The PDF names
+this engine (``PRODUCER``) in Info and XMP.
 """
 
 import io
@@ -39,18 +39,20 @@ from ..codecs.jpeg2000 import (decode_jpeg2000, get_jpeg2000_info,
 from ..codecs.mrc_encode import (encode_mrc_images, encode_mrc_mask,
                                  EncodedLayer, EncodedMask, PackedMask)
 from ..const import (
-    IMAGE_MODE_MRC, IMAGE_MODE_SKIP, COMPRESSOR_JPEG2000, COMPRESSOR_JBIG2,
-    COMPRESSOR_CCITT, JPEG2000_IMPL_PILLOW, JPEG2000_IMPL_TPU, DENOISE_FAST,
+    IMAGE_MODE_PASSTHROUGH, IMAGE_MODE_PIXMAP, IMAGE_MODE_MRC,
+    COMPRESSOR_JPEG2000, COMPRESSOR_JPEG, COMPRESSOR_JBIG2, COMPRESSOR_CCITT,
+    JPEG2000_IMPL_PILLOW, JPEG2000_IMPL_TPU, DENOISE_FAST,
     RECODE_RUNTIME_WARNING_INVALID_PAGE_SIZE, REFERENCE_PRODUCER)
 from ..inputs.hocr import (hocr_page_iterator, hocr_page_to_word_data,
                            hocr_page_get_dimensions, hocr_page_get_scan_res)
 from ..inputs.scandata import Scandata
 from ..mrc.api import decompose_masks, decompose_layers
+from ..ops.grayconvert import special_gray_convert
 from ..pdf.builder import DocumentBuilder
 from ..pdf.reader import PdfReader
 from ..pdf.writer import Name
 from ..pipeline.timing import get_timing_summary, Reporter
-from ..utils.backend import (pack_mask_bits, resolve_device,
+from ..utils.backend import (pack_mask_bits, resolve_device, synchronize,
                              unpack_mask_bits)
 
 PDFA_MIN_UNITS = 3
@@ -226,6 +228,15 @@ def _decode_pdf_image(reader, stream):
     raise ValueError('cannot decode page image (filter %r)' % (filt,))
 
 
+def _render_page_composite(reader, idx):
+    """A whole page (all images and vector/text marks) rendered at the
+    resolution of its largest image, 'L' or 'RGB' as the MRC takes it:
+    multi-image pages and image mode 1."""
+    from ..pdf.raster import render_page_image
+    img = render_page_image(reader, idx)
+    return img.convert('L') if img.mode == '1' else img
+
+
 class PageJob:
     __slots__ = ('page_idx', 'src_idx', 'word_data', 'dpi', 'hq')
 
@@ -253,12 +264,7 @@ def _load_page_image(in_pdf, image_files, src_idx, downsample,
             _, _, stream = imgs[0]
             image = _decode_pdf_image(in_pdf, stream)
         else:
-            # multi-image page: all images and marks rendered whole at
-            # the largest image's resolution; 'L' or 'RGB' for the MRC
-            from ..pdf.raster import render_page_image
-            image = render_page_image(in_pdf, src_idx)
-            if image.mode == '1':
-                image = image.convert('L')
+            image = _render_page_composite(in_pdf, src_idx)
     else:
         imgfile = image_files[src_idx]
         if imgfile.endswith(('.jp2', '.jpx')):
@@ -380,7 +386,9 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
                       mrc_image_format=COMPRESSOR_JPEG2000,
                       mask_compression=COMPRESSOR_JBIG2, threads=None,
                       batch_pages=DEFAULT_BATCH_PAGES, exact_denoise=True,
-                      resume=False, errors=None, device=None):
+                      resume=False, errors=None, grayscale_pdf=False,
+                      force_1bit_output=False, jbig2_symbol_mode=False,
+                      jbig2_bands=1, device=None):
     """Pass 2 (``recode.py:266-529``), batched on ``device``."""
     timing_data = _TimingSink()
     if img_dir is not None:
@@ -443,6 +451,7 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             jpeg2000_implementation=jpeg2000_implementation,
             mrc_image_format=mrc_image_format, tmp_dir=tmp_dir,
             threads=threads, timing_data=timing_data, debug=debug,
+            jbig2_symbol_mode=jbig2_symbol_mode, jbig2_bands=jbig2_bands,
             fg_qbands=fg_qbands, bg_qbands=bg_qbands, device=device)
         if img_dir is not None:
             _write_artifacts(img_dir, job, image_mode, em, eb, ef)
@@ -498,11 +507,33 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
                 timing_data.append(('page_image_insertion', time() - t))
             return
 
+        pages = arrs
+        if grayscale_pdf and mode == 'RGB':
+            # the conversion stays on the device and feeds the MRC
+            t = time()
+            pages = special_gray_convert(
+                torch.from_numpy(np.stack(arrs)).to(device))
+            mode = 'L'
+            synchronize(device)
+            timing_data.append(('special_gray_convert', time() - t))
+
         mask_dev, dev_imgs = decompose_masks(
-            arrs, [j.word_data for j in batch_jobs], dpi=batch_jobs[0].dpi,
+            pages, [j.word_data for j in batch_jobs], dpi=batch_jobs[0].dpi,
             downsample=downsample, denoise_mask=denoise_mask,
             exact_denoise=exact_denoise, timing_data=timing_data,
             device=device)
+
+        if force_1bit_output:
+            # the inverted mask alone, as a mask-only page
+            masks = unpack_mask_bits(pack_mask_bits(mask_dev),
+                                     int(mask_dev.shape[-1]))
+            for job, mask in zip(batch_jobs, masks):
+                em = encode_mrc_mask(~mask, fmt=mask_fmt, embedded=True,
+                                     timing_data=timing_data, debug=debug)
+                t = time()
+                builder.insert_raw_mask_page(job.page_idx, em)
+                timing_data.append(('page_image_insertion', time() - t))
+            return
         # HQ pages keep full-resolution layers
         any_hq = any(j.hq for j in batch_jobs)
         all_hq = all(j.hq for j in batch_jobs)
@@ -519,8 +550,9 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
         t = time()
         packed_np = pack_mask_bits(mask_dev).cpu().numpy()
         h_m, w_m = int(mask_dev.shape[1]), int(mask_dev.shape[2])
-        if mask_fmt == COMPRESSOR_JBIG2:
-            # generic JBIG2 consumes the packed rows directly
+        if (mask_fmt == COMPRESSOR_JBIG2 and not jbig2_symbol_mode
+                and jbig2_bands <= 1):
+            # generic JBIG2 in one region consumes the packed rows
             masks = [PackedMask(packed_np[i], w_m, h_m)
                      for i in range(packed_np.shape[0])]
         else:
@@ -656,23 +688,38 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
     return timing_data
 
 
-def _reject_unported(image_mode, grayscale_pdf, force_1bit_output,
-                     jbig2_symbol_mode, jbig2_bands, profile_dir):
-    """Options off the ported slice raise; none silently runs another
-    path."""
-    unported = [
-        (image_mode not in (IMAGE_MODE_MRC, IMAGE_MODE_SKIP),
-         '--image-mode %s' % (image_mode,)),
-        (grayscale_pdf, '--grayscale-pdf'),
-        (force_1bit_output, '--bw-pdf'),
-        (bool(jbig2_symbol_mode), '--jbig2-symbol-coding other than off'),
-        (jbig2_bands > 1, '--jbig2-bands above 1'),
-        (profile_dir is not None, '--profile'),
-    ]
-    for bad, flag in unported:
-        if bad:
-            raise NotImplementedError(
-                '%s: not ported to archive_pdf_tools_tpu_torch yet' % flag)
+def insert_images_legacy(builder, in_pdf, mode, report_every=None,
+                         stop_after=None):
+    """Image modes 0/1 (``recode.py:532-558``): a source page's one
+    JPEG or JPEG2000 image passed through (0), else the page rendered
+    whole and re-encoded as JPEG (1, and any page mode 0 cannot pass)."""
+    for idx in range(min(in_pdf.page_count(), len(builder.pages))):
+        if stop_after is not None and idx >= stop_after:
+            break
+        imgs = in_pdf.page_images(idx)
+        if not imgs:
+            continue
+        _, _, stream = imgs[0]
+        raw, filt, w, h, cs = in_pdf.extract_image(stream)
+        gray = cs in ('DeviceGray', None)
+        if mode == IMAGE_MODE_PASSTHROUGH and len(imgs) == 1 and \
+                filt in ('DCTDecode', 'JPXDecode'):
+            fmt = (COMPRESSOR_JPEG if filt == 'DCTDecode'
+                   else COMPRESSOR_JPEG2000)
+            builder.insert_image(idx, EncodedLayer(raw, fmt, w, h, gray),
+                                 gray=gray)
+        else:
+            img = _render_page_composite(in_pdf, idx)
+            buf = io.BytesIO()
+            img.save(buf, format='JPEG', quality=90)
+            builder.insert_image(
+                idx, EncodedLayer(buf.getvalue(), COMPRESSOR_JPEG,
+                                  img.size[0], img.size[1],
+                                  img.mode == 'L'),
+                gray=img.mode == 'L')
+        if report_every is not None and idx % report_every == 0:
+            print('Processed %d PDF pages.' % (idx + 1))
+            sys.stdout.flush()
 
 
 def _stamp_producer(builder):
@@ -710,9 +757,12 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     """Whole-tool pipeline (``recode.py:562-796``); returns
     {'errors': set, 'compression_ratio': float}.  Same arguments as the
     JAX package's ``recode`` plus ``device`` (default the first GPU;
-    ``'cpu'`` runs the plain PyTorch versions of the kernels)."""
-    _reject_unported(image_mode, grayscale_pdf, force_1bit_output,
-                     jbig2_symbol_mode, jbig2_bands, profile_dir)
+    ``'cpu'`` runs the plain PyTorch versions of the kernels).
+
+    profile_dir: the span the JAX package traces with jax.profiler (the
+    source's opening, pass 1 and pass 2) runs under torch.profiler, with
+    the card's kernels when ``device`` is a GPU, and is written as one
+    Chrome trace, ``profile_dir/trace.json``.  The PDF is the same."""
     if from_pdf is None and from_imagestack is None:
         raise ValueError('recode: from_pdf or from_imagestack is required')
     device = resolve_device(device)
@@ -736,6 +786,15 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
             hq_bg_compression_flags = dflt[2].split(' ')
         if hq_fg_compression_flags is None:
             hq_fg_compression_flags = dflt[3].split(' ')
+
+    profiler = None
+    if profile_dir:
+        from torch.profiler import profile, ProfilerActivity
+        activities = [ProfilerActivity.CPU]
+        if device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.__enter__()
 
     in_pdf = PdfReader(from_pdf) if from_pdf else None
     image_files = sorted(glob(from_imagestack)) if from_imagestack else None
@@ -799,7 +858,20 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
             mrc_image_format=mrc_image_format,
             mask_compression=mask_compression, threads=threads,
             batch_pages=batch_pages, exact_denoise=exact_denoise,
-            resume=resume, errors=errors, device=device)
+            resume=resume, errors=errors, grayscale_pdf=grayscale_pdf,
+            force_1bit_output=force_1bit_output,
+            jbig2_symbol_mode=jbig2_symbol_mode, jbig2_bands=jbig2_bands,
+            device=device)
+    elif image_mode in (IMAGE_MODE_PASSTHROUGH, IMAGE_MODE_PIXMAP):
+        if in_pdf is None:
+            raise ValueError('recode: image modes 0 and 1 need from_pdf')
+        insert_images_legacy(builder, in_pdf, image_mode,
+                             report_every=report_every, stop_after=stop)
+
+    if profiler is not None:
+        profiler.__exit__(None, None, None)
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, 'trace.json'))
 
     builder.write_pdfa()
     if scandata_file is not None:

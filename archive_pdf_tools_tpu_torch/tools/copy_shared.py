@@ -72,8 +72,49 @@ COPIES = {
                                   "    os.makedirs(os.path.dirname(so_path), "
                                   "exist_ok=True)\n"
                                   "    with _path_lock(so_path):\n")]),
+    'pdf/rewrite.py': ('pdf/rewrite.py', None, []),
     'cli/pdf_to_hocr.py': ('cli/pdf_to_hocr.py', None, []),
     'cli/pdf_metadata_json.py': ('cli/pdf_metadata_json.py', None, []),
+    'cli/compress_pdf_images.py': (
+        'cli/compress_pdf_images.py', 'a --device for the MRC (default '
+        'cuda:0), the mask fetched from the device', [
+            ("                         hocr_dims=None, recompress_mrc=False):\n",
+             "                         hocr_dims=None, recompress_mrc=False,\n"
+             "                         device=None):\n"),
+            ("            denoise_mask=DENOISE_FAST, errors=errors)\n",
+             "            denoise_mask=DENOISE_FAST, device=device)\n"),
+            ("            np.asarray(mask_dev)[0], fg[0], bg[0],\n",
+             "            mask_dev[0].cpu().numpy(), fg[0], bg[0],\n"),
+            ("    parser.add_argument('-v', '--verbose', action='store_true')\n"
+             "    args = parser.parse_args(argv)\n",
+             "    parser.add_argument('-v', '--verbose', action='store_true')\n"
+             "    parser.add_argument('--device', default='cuda:0',\n"
+             "                        help=\"torch device (default cuda:0; 'cpu' "
+             "runs the \"\n"
+             "                             'plain PyTorch versions of the "
+             "kernels)')\n"
+             "    args = parser.parse_args(argv)\n"
+             "    from ..utils.backend import resolve_device\n"
+             "    device = resolve_device(args.device)\n"),
+            ("                                recompress_mrc=args.recompress_mrc):\n",
+             "                                recompress_mrc=args.recompress_mrc,\n"
+             "                                device=device):\n")]),
+    'cli/pdfcomp.py': ('cli/pdfcomp.py', 'passes --device on to '
+                       'compress-pdf-images', [
+                           ("    parser.add_argument('--bg-downsample', type=int, "
+                            "default=3)\n    args",
+                            "    parser.add_argument('--bg-downsample', type=int, "
+                            "default=3)\n"
+                            "    parser.add_argument('--device', default='cuda:0',\n"
+                            "                        help=\"torch device (default "
+                            "cuda:0; 'cpu' runs the \"\n"
+                            "                             'plain PyTorch versions "
+                            "of the kernels)')\n    args"),
+                           ("    cargv += [args.outfile, '--bg-downsample', "
+                            "str(args.bg_downsample)]\n",
+                            "    cargv += [args.outfile, '--bg-downsample', "
+                            "str(args.bg_downsample),\n"
+                            "              '--device', args.device]\n")]),
     'validators/__init__.py': ('validators/__init__.py', None, []),
     'validators/jbig2_check.py': ('validators/jbig2_check.py', None, []),
     'validators/jp2_check.py': ('validators/jp2_check.py', None, []),

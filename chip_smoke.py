@@ -40,6 +40,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    build of K3 against its plain version at the same batch, then one
    run of the ablation tool
    (``archive_pdf_tools_tpu_torch/tools/threshold_ablate.py``) at batch 2.
+   (2d) the three off-path ops, torch ops on the card, against their CPU
+   form, with their CUDA-event times and peak device memory: the gray
+   conversion of ``--grayscale-pdf`` on the RGB page (bit-equal), the
+   one-pass despeckle of ``--approx-denoise`` on phase 2's batch of
+   Sauvola masks (bit-equal), and the split-Bregman TV denoise of
+   ``--denoise-mask bregman`` on one page's mask (the > 0.4 masks agree
+   at >= 0.9999; the CPU form runs on a thread from phase 2 on), timed
+   at batch 8 too.
 3. End to end, through the recode_pdf_torch CLI: a 16-page 400-DPI book
    with hOCR lines (15 gray pages, 1 RGB), once with default flags, once
    with ``--bg-downsample 3`` and once with the in-tree JPEG2000 encoder
@@ -55,7 +63,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``--from-pdf`` with ``-T`` on a PDF that Pillow writes from the
    book's first 8 pages (one JPEG a page); ``--from-pdf`` without ``-T``
    on the small book's own MRC PDF (two images and a text layer a page);
-   the small book with ``--scandata-file``.
+   the small book with ``--scandata-file``.  (3d) every recode option off
+   the main path on the small book, card against CPU, equal
+   bytes (bregman: masks at >= 0.9999; ``--profile``: the bytes of the
+   run without it); then three full-size runs: pages 8-15 with ``-J tpu
+   --grayscale-pdf --jbig2-symbol-coding auto --profile DIR``, whose
+   Chrome trace must name K1-K5 and B7 and gives the device's busy share
+   of the traced span; pages 0-7 with ``--bw-pdf --denoise-mask
+   bregman`` (no fill and no despeckle launch); and compress-pdf-images
+   with hOCR on a two-page JPEG PDF of the book, whose masks must equal
+   a ``--device cpu`` run's bit for bit (that run on the thread too).
 
 The script's wall time, the card's name and power limit and the
 kernels' JSON summary come before the last line (``library_ms`` is null
@@ -776,20 +793,27 @@ def _write_book(tmp, name, pages, wds):
             _write_hocr(tmp, name, pages, wds))
 
 
+def _counted(fn):
+    """fn() with every kernel's launch count set to 0 before; returns
+    (its result, the counts)."""
+    counters = {name: getattr(_wrapper_module(name), KERNELS[name][1])
+                for name in KERNELS}
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    return out, {k: f.launches for k, f in counters.items()}
+
+
 def _run_cli(args, out, insize, n_pages, need):
     """One recode_pdf_torch CLI run on the card; its output must pass the
     PDF/A validator and the launch counts of that run reach ``need``.
     Returns the counts."""
     from archive_pdf_tools_tpu_torch.validators import validate_pdfa
     from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
-    counters = {name: getattr(_wrapper_module(name), KERNELS[name][1])
-                for name in KERNELS}
-    for fn in counters.values():
-        fn.launches = 0
     t0 = time.time()
-    rc = main(list(args) + ['-o', out, '-v', '--device', DEV])
+    rc, launches = _counted(
+        lambda: main(list(args) + ['-o', out, '-v', '--device', DEV]))
     wall = time.time() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
     if rc != 0:
         raise SystemExit('FAIL: recode_pdf_torch exited %d' % rc)
     validate_pdfa(out)
@@ -955,6 +979,274 @@ def phase_scandata(tmp, need):
         raise SystemExit('FAIL: --scandata-file: pages or labels wrong')
 
 
+def _cuda_peak(fn, reps=3):
+    """(median CUDA-event ms of ``reps`` calls, peak device memory in MB
+    that a call allocates beyond what was in use before it)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _cuda_ms(fn, reps)
+    return ms, (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _leave_two_cores():
+    """The CPU references' thread computes on all but two host cores;
+    those are left to the thread that drives the card."""
+    import torch
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+
+
+def _cpu_tv_reference(page):
+    """The page's Sauvola mask (the plain K3 on the CPU, host taps) and
+    its TV denoise > 0.4 on the CPU: phase 2d's reference, run on a
+    thread while the card runs phases 2-2c."""
+    import torch
+    from archive_pdf_tools_tpu_torch.mrc import decompose as D
+    from archive_pdf_tools_tpu_torch.ops.tv import denoise_tv_bregman
+    t = time.time()
+    mask, _ = D.global_mask(torch.from_numpy(page[None]), WINDOW)
+    tv = denoise_tv_bregman(mask.to(torch.float32)) > 0.4
+    return mask, tv, time.time() - t
+
+
+def phase_offpath_ops(pages, tv_ref):
+    """2d: the off-path ops on the card against their CPU form."""
+    import torch
+    from archive_pdf_tools_tpu_torch.mrc import decompose as D
+    from archive_pdf_tools_tpu_torch.ops.denoise import \
+        fast_mask_denoise_jacobi
+    from archive_pdf_tools_tpu_torch.ops.grayconvert import \
+        special_gray_convert
+    from archive_pdf_tools_tpu_torch.ops.tv import denoise_tv_bregman
+    print('phase 2d: off-path ops (torch ops) on the card vs their CPU '
+          'form, %dx%d' % (H, W))
+    rgb = torch.from_numpy(pages[N_PAGES - 1][None])
+    rgb_dev = rgb.to(DEV)
+    _check_equal('special_gray_convert',
+                 special_gray_convert(rgb_dev).cpu(),
+                 special_gray_convert(rgb))
+    ms, mb = _cuda_peak(lambda: special_gray_convert(rgb_dev))
+    print('  special_gray_convert 1 RGB page: == CPU; %.3f ms, peak %.1f MB'
+          % (ms, mb))
+    del rgb_dev
+
+    gray = torch.from_numpy(np.stack(pages[:BATCH])).to(DEV)
+    mask, _ = D.global_mask(gray, WINDOW)
+    _check_equal('fast_mask_denoise_jacobi',
+                 fast_mask_denoise_jacobi(mask, 4, 2).cpu(),
+                 fast_mask_denoise_jacobi(mask.cpu(), 4, 2))
+    ms, mb = _cuda_peak(lambda: fast_mask_denoise_jacobi(mask, 4, 2))
+    print('  fast_mask_denoise_jacobi batch %d: == CPU; %.3f ms, peak %.1f '
+          'MB' % (BATCH, ms, mb))
+
+    # the card's work first, then the wait for the CPU form
+    card_tv = (denoise_tv_bregman(mask[:1].to(torch.float32)) > 0.4).cpu()
+    ms1, mb1 = _cuda_peak(
+        lambda: denoise_tv_bregman(mask[:1].to(torch.float32)), reps=1)
+    maskf = mask.to(torch.float32)
+    ms8, mb8 = _cuda_peak(lambda: denoise_tv_bregman(maskf), reps=1)
+    cpu_mask, cpu_tv, cpu_s = tv_ref.result()
+    _check_equal('phase 2d TV input (K3 vs plain, host taps)',
+                 mask[:1].cpu(), cpu_mask)
+    agree = float((card_tv == cpu_tv).to(torch.float64).mean())
+    print('  denoise_tv_bregman 1 page: > 0.4 agrees with CPU at %.7f '
+          '(CPU form %.1f s on a thread); %.3f ms, peak %.1f MB'
+          % (agree, cpu_s, ms1, mb1))
+    if agree < 0.9999:
+        raise SystemExit('FAIL: TV denoise on the card differs from the '
+                         'CPU (%.7f)' % agree)
+    plane = maskf.numel() * 4 / 1e6
+    # live inside an fma: u, d and b (two planes each), the gradients,
+    # the norm, the shrink and a temporary in float32, and ~7 float64
+    # planes (the product, the sum, TwoSum's terms, the rounded sum)
+    print('  denoise_tv_bregman batch %d: %.3f ms, peak %.1f MB (%.0f MB a '
+          'float32 plane; ~10 float32 and ~7 float64 planes reckoned: '
+          '%.0f MB)' % (BATCH, ms8, mb8, plane, 24 * plane))
+
+
+def _jbig2_masks(pdf_path):
+    """The decoded bits of every JBIG2 image or soft mask of the PDF, in
+    page and image order."""
+    from archive_pdf_tools_tpu_torch.codecs.jbig2 import decode_jbig2
+    from archive_pdf_tools_tpu_torch.pdf.reader import PdfReader
+    rd = PdfReader(pdf_path)
+    out = []
+    for page in range(rd.page_count()):
+        for _n, _x, s in rd.page_images(page):
+            for im in (s, rd.resolve(s.dict.get('SMask'))):
+                if im is not None and str(rd.resolve(
+                        im.dict.get('Filter'))) == 'JBIG2Decode':
+                    out.append(decode_jbig2(
+                        im.raw, int(rd.resolve(im.dict['Width'])),
+                        int(rd.resolve(im.dict['Height']))))
+    return out
+
+
+def phase_small_options(tmp):
+    """3d: each recode option off the main path on the small book (phase
+    3b's), on the card and on the CPU."""
+    from archive_pdf_tools_tpu_torch import recode
+    src = os.path.join(tmp, 'small_card.pdf')
+    base = dict(from_imagestack=os.path.join(tmp, 'small_*.png'),
+                hocr_file=os.path.join(tmp, 'small.hocr'), dpi=100,
+                jbig2=True)
+    cases = [('--grayscale-pdf', dict(grayscale_pdf=True)),
+             ('--bw-pdf', dict(force_1bit_output=True)),
+             ('--jbig2-bands 2', dict(jbig2_bands=2)),
+             ('--approx-denoise', dict(exact_denoise=False)),
+             ('--denoise-mask bregman', dict(denoise_mask='bregman')),
+             ('-m 0 --from-pdf', dict(image_mode=0, from_pdf=src,
+                                      from_imagestack=None, dpi=None)),
+             ('-m 1 --from-pdf', dict(image_mode=1, from_pdf=src,
+                                      from_imagestack=None, dpi=None))]
+    cases += [('--jbig2-symbol-coding %s' % m,
+               dict(jbig2_symbol_mode=True if m == 'on' else m))
+              for m in ('on', 'auto', 'lossy', 'refine')]
+    for label, kw in cases:
+        outs = []
+        for dev in (DEV, 'cpu'):
+            outs.append(os.path.join(tmp, 'opt_%s.pdf' % dev[:3]))
+            recode(out_pdf=outs[-1], device=dev, **dict(base, **kw))
+        with open(outs[0], 'rb') as a, open(outs[1], 'rb') as b:
+            same = a.read() == b.read()
+        if 'denoise_mask' in kw:
+            ma, mb = _jbig2_masks(outs[0]), _jbig2_masks(outs[1])
+            agree = min(float((a == b).mean()) for a, b in zip(ma, mb))
+            print('  %-28s card vs CPU: masks agree at %.6f (bytes %s)'
+                  % (label, agree, 'equal' if same else 'differ'))
+            if len(ma) != 3 or len(mb) != 3 or agree < 0.9999:
+                raise SystemExit('FAIL: %s: card and CPU masks differ'
+                                 % label)
+            continue
+        print('  %-28s card vs CPU: %s' % (label, 'byte-identical' if same
+                                          else 'DIFFERENT'))
+        if not same:
+            raise SystemExit('FAIL: %s: card and CPU recode differ' % label)
+    out = os.path.join(tmp, 'opt_profile.pdf')
+    recode(out_pdf=out, device=DEV, profile_dir=os.path.join(tmp, 'sprof'),
+           **base)
+    with open(out, 'rb') as a, open(src, 'rb') as b:
+        same = a.read() == b.read()
+    print('  %-28s card: %s the run without it' % (
+        '--profile', 'byte-identical with' if same else 'DIFFERENT from'))
+    if not same:
+        raise SystemExit('FAIL: --profile changed the PDF')
+
+
+# a name each kernel's launches carry in a trace (csrc/*.cu; K3's first
+# launch, as ``sauvola_kernel`` is also part of K4's name)
+TRACE_NAMES = {'optimise': 'optimise_kernel', 'despeckle': 'despeckle_kernel',
+               'blur_sauvola': 'blur_kernel',
+               'line_sauvola': 'line_sauvola_kernel', 'paste': 'paste_kernel',
+               'dwt97': 'dwt_level'}
+
+
+def read_trace(path):
+    """From a torch.profiler Chrome trace: the traced span (ms), the union
+    of the CUDA kernel intervals in it (ms) and the kernel names."""
+    with open(path) as fp:
+        events = [e for e in json.load(fp)['traceEvents']
+                  if e.get('ph') == 'X' and 'dur' in e]
+    lo = min(e['ts'] for e in events)
+    hi = max(e['ts'] + e['dur'] for e in events)
+    kern = sorted((e['ts'], e['ts'] + e['dur']) for e in events
+                  if e.get('cat') == 'kernel')
+    busy, end = 0.0, -1e30
+    for a, b in kern:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (hi - lo) / 1e3, busy / 1e3, {e['name'] for e in events
+                                         if e.get('cat') == 'kernel'}, \
+        len(kern)
+
+
+def phase_full_options(tmp, pages, wds, comp_ref):
+    """3d: full-size runs of the options off the main path."""
+    lined = dict(blur_sauvola=2, despeckle=2, optimise=4, line_sauvola=2,
+                 paste=2)
+    prof = os.path.join(tmp, 'prof')
+    # pages 8-14 gray in batches of 4 and 3, page 15 RGB made gray alone
+    run_book(tmp, 'grayprof', pages[8:], wds[8:],
+             ['-J', 'tpu', '--grayscale-pdf', '--jbig2-symbol-coding',
+              'auto', '--profile', prof],
+             dict(lined, blur_sauvola=3, despeckle=3, optimise=6,
+                  line_sauvola=3, paste=3, dwt97=6))
+    trace = os.path.join(prof, 'trace.json')
+    span, busy, names, n = read_trace(trace)
+    print('  trace %s: %.1f MB, %d kernel events; device busy %.1f of '
+          '%.1f ms traced = %.2f%% (the union of the CUDA kernel '
+          'intervals; one run under the profiler)'
+          % (trace, os.path.getsize(trace) / 1e6, n, busy, span,
+             100 * busy / span))
+    missing = [k for k, v in TRACE_NAMES.items()
+               if not any(v in name for name in names)]
+    if missing:
+        raise SystemExit('FAIL: the trace names no kernel of %s' % missing)
+    print('  the trace names K1-K5 and B7: %s' % ', '.join(
+        sorted({name for name in names
+                for v in TRACE_NAMES.values() if v in name})))
+
+    launches = run_book(tmp, 'bwbreg', pages[:BATCH], wds[:BATCH],
+                        ['--bw-pdf', '--denoise-mask', 'bregman'],
+                        dict(blur_sauvola=2, line_sauvola=2, paste=2))
+    if launches['optimise'] or launches['despeckle']:
+        raise SystemExit('FAIL: --bw-pdf --denoise-mask bregman launched '
+                         'the fill or the despeckle')
+
+    from archive_pdf_tools_tpu_torch.cli.compress_pdf_images import main
+    src, hocr, insize = comp_ref['src']
+    out = os.path.join(tmp, 'comp_card.pdf')
+    print('phase 3d: compress-pdf-images with hOCR, 2 pages of %dx%d, one '
+          'JPEG a page' % (H, W))
+    t0 = time.time()
+    rc, launches = _counted(lambda: main([src, hocr, out, '--dpi', str(DPI),
+                                          '--device', DEV]))
+    wall = time.time() - t0
+    if rc != 0:
+        raise SystemExit('FAIL: compress-pdf-images exited %d' % rc)
+    for k, v in lined.items():
+        if launches[k] < v:
+            raise SystemExit('FAIL: compress-pdf-images launched %s %d '
+                             'times, expected >= %d' % (k, launches[k], v))
+    ours = _jbig2_masks(out)
+    ref, cpu_s = comp_ref['cpu'].result()
+    same = len(ours) == len(ref) == 2 and all(
+        a.shape == b.shape and (a == b).all() for a, b in zip(ours, ref))
+    print('  wall %.3f s (the --device cpu run %.1f s, on a thread); %d -> '
+          '%d bytes; launches %s; masks %s the CPU run\'s'
+          % (wall, cpu_s, insize, os.path.getsize(out), launches,
+             'bit-equal with' if same else 'DIFFERENT from'))
+    if not same:
+        raise SystemExit('FAIL: compress-pdf-images masks differ from the '
+                         'CPU run')
+
+
+def _jpeg_pdf(tmp, pages, wds):
+    """Pages as one JPEG a page, written by Pillow, and their hOCR."""
+    from PIL import Image
+    # Pillow's PDF writer looks its JPEG encoder up by name: registered
+    # only once the plugin is imported
+    from PIL import JpegImagePlugin  # noqa: F401
+    src = os.path.join(tmp, 'comp_src.pdf')
+    ims = [Image.fromarray(p) for p in pages]
+    ims[0].save(src, save_all=True, append_images=ims[1:], resolution=DPI)
+    return src, _write_hocr(tmp, 'comp', pages, wds), os.path.getsize(src)
+
+
+def _cpu_compress(src, hocr, out):
+    """compress-pdf-images --device cpu: phase 3d's reference masks."""
+    from archive_pdf_tools_tpu_torch.cli.compress_pdf_images import main
+    t = time.time()
+    rc = main([src, hocr, out, '--dpi', str(DPI), '--device', 'cpu'])
+    if rc != 0:
+        raise SystemExit('FAIL: compress-pdf-images --device cpu exited %d'
+                         % rc)
+    return _jbig2_masks(out), time.time() - t
+
+
 def phase_ablate(pages):
     """K6: each ablation build of K3 against its plain version at the
     main path's batch (book pages, real taps r=4); then the ablation
@@ -1003,9 +1295,31 @@ def main():
     pages = [p for p, _ in book]
     wds = [wd for _, wd in book]
     print('made %d pages in %.1f s' % (N_PAGES, time.time() - t0))
+    tmp_ref = tempfile.TemporaryDirectory(prefix='chip_smoke_ref')
+    comp_src = _jpeg_pdf(tmp_ref.name, pages[:2], wds[:2])
+    # the CPU forms phases 2d and 3d compare with, on a thread while the
+    # card runs phases 2-2c; what the thread imports is imported
+    # here first (an import racing another thread's can leave Pillow
+    # without a plugin)
+    from PIL import Image
+    Image.init()
+    import archive_pdf_tools_tpu_torch.cli.compress_pdf_images  # noqa: F401
+    import archive_pdf_tools_tpu_torch.ops.tv  # noqa: F401
+    import archive_pdf_tools_tpu_torch.pdf.raster  # noqa: F401
+    import archive_pdf_tools_tpu_torch.pipeline.recode  # noqa: F401
+    # one worker, the TV last: phase 2d waits for it, so neither reference
+    # is still running in phase 3, whose host-bound runs it would slow
+    refs = ThreadPoolExecutor(max_workers=1, initializer=_leave_two_cores)
+    comp_ref = {'src': comp_src, 'cpu': refs.submit(
+        _cpu_compress, comp_src[0], comp_src[1],
+        os.path.join(tmp_ref.name, 'comp_cpu.pdf'))}
+    tv_ref = refs.submit(_cpu_tv_reference, pages[0])
     kernels = phase_kernels(pages[:BATCH], wds[:BATCH])
     phase_odd_shapes()
     ablate, ablate_launches = phase_ablate(pages[:BATCH])
+    t_new = time.time()
+    phase_offpath_ops(pages, tv_ref)
+    t_new = time.time() - t_new
     every = {'blur_sauvola': 2, 'despeckle': 2, 'optimise': 4}
     lined = dict(every, line_sauvola=2, paste=2)
     with tempfile.TemporaryDirectory(prefix='chip_smoke') as tmp:
@@ -1026,6 +1340,16 @@ def main():
         phase_small_book(tmp)
         phase_small_from_pdf(tmp, one_batch)
         phase_scandata(tmp, one_batch)
+        t0 = time.time()
+        print('phase 3d: the recode options off the main path on the '
+              '3-page small book, card vs CPU plain path')
+        phase_small_options(tmp)
+        phase_full_options(tmp, pages, wds, comp_ref)
+        t_new += time.time() - t0
+    refs.shutdown()
+    tmp_ref.cleanup()
+    print('phases 2d and 3d: %.1f s of wall time (their CPU references ran '
+          'on a thread from phase 2 on)' % t_new)
     if 'jax' in sys.modules:
         raise SystemExit('FAIL: jax was imported')
 

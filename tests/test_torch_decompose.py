@@ -127,20 +127,18 @@ def test_page_with_hocr_line_raises():
 @pytest.mark.parametrize('kw', [{'downsample': 2}, {'denoise_mask': 'bregman'},
                                 {'exact_denoise': False}])
 def test_unported_mask_options_raise(kw):
-    """``downsample`` is ported now (line boxes are divided by it, as the
-    pages were) and is held bit-exact against the JAX package; the other
-    options still raise."""
+    """Formerly: ``denoise_mask='bregman'`` and ``exact_denoise=False``
+    raised.  Each mask option now runs and equals the JAX package's mask
+    (``downsample`` divides the line boxes, as the pages were; bregman is
+    the TV denoise, ``exact_denoise=False`` the one-pass despeckle), and
+    each changes the mask."""
     page, word_data = synth_scan(h=240, w=300, seed=1, dpi=DPI,
                                  noise_sigma=0)
-    if 'downsample' in kw:
-        tm, _, _ = _port([page], [word_data], **kw)
-        jm, _, _ = _jax([page], [word_data], **kw)
-        assert (tm == jm).all()
-        full, _, _ = _port([page], [word_data])
-        assert (tm != full).any()        # the boxes did move
-        return
-    with pytest.raises(NotImplementedError):
-        TA.decompose_masks([page], [[]], dpi=DPI, device='cpu', **kw)
+    tm, _, _ = _port([page], [word_data], **kw)
+    jm, _, _ = _jax([page], [word_data], **kw)
+    assert (tm == jm).all()
+    full, _, _ = _port([page], [word_data])
+    assert (tm != full).any()
 
 
 def test_no_gpu_no_cpu_fallback(monkeypatch):

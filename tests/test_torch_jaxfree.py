@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: it imports neither jax nor anything of
 the JAX package (``archive_pdf_tools_tpu``), and its main path (hOCR
 lines, layer downsampling, scandata, --from-pdf and -J tpu included)
-needs no lxml (GPU machines may not ship it).  The runs below block all
-three imports, with ``APT_PLATFORM=cpu`` set as the JAX package's tools
-set it."""
+needs no lxml (GPU machines may not ship it), nor do the off-path
+options and the compress-pdf-images and pdfcomp tools.  The runs below
+block all three imports, with ``APT_PLATFORM=cpu`` set as the JAX
+package's tools set it."""
 
 import ast
 import os
@@ -40,7 +41,9 @@ for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize',
              'inputs.scandata', 'pdf.raster', 'ops.dwt97', 'ops.dwt97_cuda',
              'codecs.jp2host', 'codecs.jp2tpu', 'codecs.mrc_encode',
              'const', 'validators.pdfa_check', 'pdf.builder',
-             'cli.pdf_to_hocr', 'utils.nativebuild'):
+             'cli.pdf_to_hocr', 'utils.nativebuild', 'ops.grayconvert',
+             'ops.tv', 'pdf.rewrite', 'cli.compress_pdf_images',
+             'cli.pdfcomp'):
     assert pkg.__name__ + '.' + name in names, name
 ''' + _NO_JAX_PKG + r'''
 print(len(names), sys.modules['jax'] is not None)
@@ -56,7 +59,7 @@ from fixtures import render_book_page, words_to_hocr_page, HOCR_TEMPLATE
 from archive_pdf_tools_tpu_torch.validators import validate_pdfa
 from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
 tmp = %(tmp)r
-img, words = render_book_page(200, 260, seed=0, noise=0)
+img, words = render_book_page(200, 260, seed=0, noise=0, rgb=%(rgb)r)
 assert words
 Image.fromarray(img).save(tmp + '/page_0000.png')
 with open(tmp + '/book.hocr', 'w') as fp:
@@ -108,6 +111,45 @@ validate_pdfa(str(tmp / 'out.pdf'))
 out = PdfReader(str(tmp / 'out.pdf'))
 assert out.page_count() == 2
 assert b'TJ' in out.page_contents(0)
+''' + _NO_JAX_PKG + r'''
+print('rc', rc)
+'''
+
+
+_CLI_TOOLS_WITHOUT_LXML = _BLOCK + r'''
+import pathlib
+sys.path.insert(0, %(root)r)
+sys.path.insert(0, %(tests)r)
+import torch
+torch.set_num_threads(2)
+from PIL import Image
+from fixtures import render_book_page, words_to_hocr_page, HOCR_TEMPLATE
+from archive_pdf_tools_tpu_torch.pdf.reader import PdfReader
+from archive_pdf_tools_tpu_torch.cli.recode_pdf import main as recode_main
+from archive_pdf_tools_tpu_torch.cli.compress_pdf_images import main as comp
+from archive_pdf_tools_tpu_torch.cli.pdfcomp import main as pdfcomp
+tmp = pathlib.Path(%(tmp)r)
+hocr = []
+for i in range(2):
+    img, words = render_book_page(200, 260, seed=i, noise=0)
+    Image.fromarray(img).save(str(tmp / ('page_%%04d.png' %% i)))
+    hocr.append(words_to_hocr_page(words, 200, 260, page_no=i))
+(tmp / 'book.hocr').write_text(HOCR_TEMPLATE %% '\n'.join(hocr))
+# a source of JPEG images and a text layer
+rc = recode_main(['--from-imagestack', str(tmp / 'page_*.png'),
+                  '--hocr-file', str(tmp / 'book.hocr'), '--dpi', '100',
+                  '--mrc-image-format', 'jpeg', '--mask-compression',
+                  'ccitt', '-o', str(tmp / 'src.pdf'), '--device', 'cpu'])
+assert rc == 0
+src = str(tmp / 'src.pdf')
+assert comp([src, str(tmp / 'book.hocr'), str(tmp / 'c.pdf'), '--dpi',
+             '100', '--device', 'cpu']) == 0
+# without --hocr: pdf-metadata-json and pdf-to-hocr first
+assert pdfcomp([src, str(tmp / 'p.pdf'), '--device', 'cpu']) == 0
+for out in ('c.pdf', 'p.pdf'):
+    rd = PdfReader(str(tmp / out))
+    assert rd.page_count() == 2
+    assert 'MRCfg' in {n for n, _, _ in rd.page_images(0)}
 ''' + _NO_JAX_PKG + r'''
 print('rc', rc)
 '''
@@ -192,10 +234,10 @@ def test_copies_of_the_jax_package_modules_are_current():
     assert copy_shared.main(['--check']) == 0
 
 
-def _run_main_path(tmp_path, extra):
+def _run_main_path(tmp_path, extra, rgb=False):
     code = _RECODE_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
                                    'tests': os.path.join(ROOT, 'tests'),
-                                   'extra': extra}
+                                   'extra': extra, 'rgb': rgb}
     r = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, env=_env(), timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -209,6 +251,22 @@ def test_main_path_runs_without_jax_and_lxml(tmp_path):
 def test_tpu_jpeg2000_runs_without_jax_and_lxml(tmp_path):
     """-J tpu: the port's transform and the copied host encoder."""
     _run_main_path(tmp_path, ['-J', 'tpu'])
+
+
+def test_grayscale_and_bregman_run_without_jax_and_lxml(tmp_path):
+    """--grayscale-pdf (an RGB page) with --denoise-mask bregman."""
+    _run_main_path(tmp_path, ['--grayscale-pdf', '--denoise-mask',
+                              'bregman'], rgb=True)
+
+
+def test_compress_tools_run_without_jax_and_lxml(tmp_path):
+    """compress-pdf-images, and pdfcomp with its text-layer extraction."""
+    code = _CLI_TOOLS_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
+                                      'tests': os.path.join(ROOT, 'tests')}
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, env=_env(), timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith('rc 0')
 
 
 def test_scandata_and_from_pdf_run_without_jax_and_lxml(tmp_path):
@@ -235,3 +293,20 @@ def test_pyproject_names_every_package_of_the_port():
     assert 'csrc/*.cu' in data and 'data/*.ttf' in data
     assert 'csrc/*.cuh' in data           # headers the kernels include
     assert os.path.exists(os.path.join(ROOT, PORT, 'data', 'glyphless.ttf'))
+
+
+def test_pyproject_names_every_entry_point_of_the_port():
+    """Each of the port's scripts names a main of the port, and each has
+    its bin/ launcher."""
+    import importlib
+    import tomllib
+    with open(os.path.join(ROOT, 'pyproject.toml'), 'rb') as fp:
+        scripts = tomllib.load(fp)['project']['scripts']
+    ours = {k: v for k, v in scripts.items() if v.startswith(PORT + '.')}
+    assert set(ours) == {'recode_pdf_torch', 'compress-pdf-images_torch',
+                         'pdfcomp_torch'}
+    sys.path.insert(0, ROOT)
+    for name, target in ours.items():
+        module, func = target.split(':')
+        assert callable(getattr(importlib.import_module(module), func))
+        assert os.access(os.path.join(ROOT, 'bin', name), os.X_OK)

@@ -256,48 +256,104 @@ def test_cli_recodes_on_cpu_and_refuses_without_gpu(tmp_path):
     {'bg_downsample': 3},
     {'fg_downsample': 2},
     {'jbig2_symbol_mode': True},
+    {'jbig2_symbol_mode': 'auto'},
+    {'jbig2_symbol_mode': 'lossy'},
+    {'jbig2_symbol_mode': 'refine'},
     {'jbig2_bands': 2},
+    {'exact_denoise': False},
+    {'denoise_mask': 'bregman'},
+    {'profile_dir': 'prof'},
+    {'image_mode': 0, 'from_imagestack': None},
+    {'image_mode': 1, 'from_imagestack': None},
+    {'image_mode': 0, 'from_pdf': 'jpeg.pdf', 'from_imagestack': None},
+    {'image_mode': 1, 'from_pdf': 'jpeg.pdf', 'from_imagestack': None},
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, kw):
-    """The downsampling options, ``from_pdf`` and ``-J tpu`` are ported
-    now: each runs on a worded book (``from_pdf``: the JAX package's PDF
-    of it) and gives the JAX package's PDF (the bytes with
-    ``downsample``, ``from_pdf`` and ``-J tpu``, where no float sum on the
-    device enters; the image sizes where a layer shrinks on the device,
-    whose float sums may differ by 1 LSB).  The other options still
-    raise."""
-    from archive_pdf_tools_tpu_torch import recode
-    args = dict(from_imagestack=str(tmp_path / '*.png'),
-                hocr_file=str(tmp_path / 'x.hocr'),
-                out_pdf=str(tmp_path / 'o.pdf'), device='cpu')
-    args.update(kw)
-    ported = [k for k in kw if k.endswith('downsample') or k in (
-        'from_pdf', 'jpeg2000_implementation')]
-    if not ported:
-        with pytest.raises(NotImplementedError):
-            recode(**args)
-        return
+    """Formerly: the options off the main path raised.  Every option
+    of the JAX package's ``recode`` runs now, on a worded book with an
+    RGB page (``from_pdf`` and image modes 0/1: the JAX package's MRC
+    PDF of it, whose pages hold two images each and are rendered whole,
+    or Pillow's PDF of one JPEG a page, passed through in mode 0), and
+    gives
+    the JAX package's PDF: the bytes, save where a layer shrinks on the
+    device (whose float sums may differ by 1 LSB: the image sizes) and
+    with bregman (the image sizes, and the masks at >= 0.9999 per page).
+    ``profile_dir`` writes a Chrome trace and the same bytes."""
     from archive_pdf_tools_tpu.pipeline.recode import recode as jax_recode
+    from archive_pdf_tools_tpu_torch import recode
+    monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
+    monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
+    glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=2, mode='RGB',
+                                        words=True)
+    args = dict(kw, from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
+                jbig2=True, out_pdf=str(tmp_path / 'o.pdf'))
+    if 'from_imagestack' in kw:
+        src = str(tmp_path / 'in.pdf')
+        if kw.get('from_pdf') == 'jpeg.pdf':
+            # one JPEG a page, written by Pillow
+            ims = [Image.open(p) for p in sorted(tmp_path.glob('*.png'))]
+            ims[0].save(src, save_all=True, append_images=ims[1:],
+                        resolution=100)
+            assert all(len(PdfReader(src).page_images(i)) == 1
+                       for i in range(2))
+        else:
+            jax_recode(out_pdf=src, from_imagestack=glob_pat,
+                       hocr_file=hocr_path, dpi=100, jbig2=True)
+        args.update(from_pdf=src, from_imagestack=None, dpi=None)
+    if 'profile_dir' in kw:
+        args['profile_dir'] = str(tmp_path / 'prof')
+    recode(device='cpu', **args)
+    ref = str(tmp_path / 'jax.pdf')
+    args.pop('profile_dir', None)
+    jax_recode(**dict(args, out_pdf=ref))
+    ours = args['out_pdf']
+    validate_pdfa(ours)
+    assert _image_sizes(ours) == _image_sizes(ref)
+    if 'profile_dir' in kw:
+        trace = tmp_path / 'prof' / 'trace.json'
+        assert b'traceEvents' in trace.read_bytes()[:4096]
+    if kw.get('denoise_mask') == 'bregman':
+        for a, b in zip(_masks(ours), _masks(ref)):
+            assert (a == b).mean() >= 0.9999
+    if not any(k.endswith('_downsample') or k == 'denoise_mask'
+               for k in kw):
+        with open(ours, 'rb') as a, open(ref, 'rb') as b:
+            assert a.read() == b.read()
+
+
+def _masks(pdf):
+    """Per page, the decoded bits of its JBIG2 masks (ink True)."""
+    from archive_pdf_tools_tpu.codecs.jbig2 import decode_jbig2
+    rd = PdfReader(pdf)
+    out = []
+    for i in range(rd.page_count()):
+        for _, _, im in rd.page_images(i):
+            m = rd.resolve(im.dict.get('SMask'))
+            if m is None:
+                continue
+            out.append(decode_jbig2(m.raw, int(rd.resolve(m.dict['Width'])),
+                                    int(rd.resolve(m.dict['Height']))))
+    assert len(out) == rd.page_count()
+    return out
+
+
+@pytest.mark.parametrize('coding', ['off', 'on', 'auto', 'lossy', 'refine'])
+def test_cli_symbol_coding_matches_jax_cli(tmp_path, monkeypatch, coding):
+    """--jbig2-symbol-coding through both CLIs' main gives the same bytes:
+    the port's CLI hands recode() the JAX CLI's True/'auto'/'lossy'/
+    'refine' (it once collapsed every mode to True, so 'auto', 'lossy'
+    and 'refine' coded as 'on')."""
+    from archive_pdf_tools_tpu.cli.recode_pdf import main as jax_main
+    from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
     monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
     monkeypatch.setattr(port_builder, 'PRODUCER', JAX_PRODUCER)
     glob_pat, hocr_path = _no_word_book(tmp_path, n_pages=2, words=True)
-    args.update(from_imagestack=glob_pat, hocr_file=hocr_path, dpi=100,
-                jbig2=True)
-    if 'from_pdf' in kw:
-        src = str(tmp_path / 'in.pdf')
-        jax_recode(out_pdf=src, **{k: v for k, v in args.items()
-                                   if k not in ('out_pdf', 'device',
-                                                'from_pdf')})
-        args.update(from_pdf=src, from_imagestack=None, dpi=None)
-    recode(**args)
-    validate_pdfa(args['out_pdf'])
-    ref = str(tmp_path / 'jax.pdf')
-    del args['device']
-    jax_recode(**dict(args, out_pdf=ref))
-    assert _image_sizes(args['out_pdf']) == _image_sizes(ref)
-    if not any(k.endswith('_downsample') for k in kw):
-        with open(args['out_pdf'], 'rb') as a, open(ref, 'rb') as b:
-            assert a.read() == b.read()
+    argv = ['--from-imagestack', glob_pat, '--hocr-file', hocr_path,
+            '--dpi', '100', '--threads', '2', '--jbig2-symbol-coding', coding]
+    ours, ref = tmp_path / 'torch.pdf', tmp_path / 'jax.pdf'
+    assert main(argv + ['-o', str(ours), '--device', 'cpu']) == 0
+    assert jax_main(argv + ['-o', str(ref)]) == 0
+    assert ours.read_bytes() == ref.read_bytes()
 
 
 def test_book_with_words_raises(tmp_path):
