@@ -4,7 +4,8 @@ the PyTorch/CUDA port's ``recode``.
 The parser and the per-codec default compression flags are copies of the
 JAX package's (``cli/recode_pdf.py:9-191``: ``build_parser``,
 ``resolve_compression_flags``), kept by hand.  ``--device`` picks the
-torch device (default the first GPU; ``cpu`` runs the plain PyTorch
+torch device (default the first GPU, with each batch split over every
+visible GPU when there are several; ``cpu`` runs the plain PyTorch
 versions of the kernels).  With ``--from-pdf`` and no ``--hocr-file``,
 the input's own text layer is extracted as hOCR first.  Every flag of
 the JAX package's ``recode_pdf`` runs; ``--profile DIR`` writes a
@@ -204,9 +205,12 @@ def resolve_compression_flags(args):
 
 def _parser():
     parser = build_parser()
-    parser.add_argument('--device', type=str, default='cuda:0',
-                        help="torch device (default cuda:0; 'cpu' runs "
-                             'the plain PyTorch versions of the kernels)')
+    parser.add_argument('--device', type=str, default=None,
+                        help='torch device (default: the first GPU, each '
+                             "batch's pages split over every visible GPU "
+                             'when there are several; a named device, e.g. '
+                             "cuda:1, runs alone; 'cpu' runs the plain "
+                             'PyTorch versions of the kernels)')
     return parser
 
 

@@ -25,10 +25,13 @@ import torch
 
 from ..const import (
     DENOISE_FAST, DENOISE_NONE, RECODE_RUNTIME_WARNING_TOO_SMALL_TO_DOWNSAMPLE)
-from ..ops.lines_cuda import RaggedLines, line_thresholds
-from ..ops.paste_cuda import paste_lines
+from ..ops.lines_cuda import RaggedLines
 from ..ops.resize import downsample_layer
 from ..ops.sauvola import sauvola_window
+from ..parallel.mesh import gather_pages, shard_pages, split_devices
+from ..parallel.sharded import (sharded_denoise, sharded_global_threshold,
+                                sharded_line_thresholds, sharded_optimise,
+                                sharded_paste)
 from ..utils.backend import resolve_device, synchronize
 from . import decompose as D
 from .hocr_prep import prepare_lines
@@ -47,7 +50,7 @@ class TimingData:
 
 def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
                     denoise_mask=DENOISE_FAST, exact_denoise=True,
-                    timing_data=None, device=None):
+                    timing_data=None, device=None, devices=None):
     """Mask phase for a uniform batch.
 
     np_images: list of uint8 arrays, all (H, W) gray or (H, W, 3) RGB of
@@ -56,6 +59,15 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
     ``downsample`` when the pages were).  Returns
     (bool (B, H, W) mask, uint8 page tensor), both on ``device``
     (default the first GPU; ``'cpu'`` runs the plain PyTorch versions).
+
+    devices: the counterpart of the JAX package's ``mesh``: a list of
+    devices (``parallel/mesh.py``; one may repeat) the batch shards over,
+    contiguous pages a device, each shard's kernels on its device and the
+    mask gathered on ``device``.  A batch smaller than the device count,
+    or one that does not divide by it, runs on ``device`` alone.  Each
+    line's selection depends on that line alone, and a shard's lines are
+    its pages' lines in document order, so the bytes are the one-device
+    run's.
 
     Timing keys: ``grey_conversion`` (RGB), ``hocr_mask_gen`` (line
     preparation, line thresholds, selection), ``threshold`` (global
@@ -70,6 +82,9 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
     rgb = imgs.ndim == 4
     h, w = imgs.shape[1], imgs.shape[2]
     window = sauvola_window(dpi)
+    shards = split_devices(devices, imgs.shape[0]) or [dev]
+    per = imgs.shape[0] // len(shards)
+    used = set(shards)
 
     tl0 = _time.time()
     page_boxes = [prepare_lines(wd, w, h, downsample=downsample)
@@ -78,71 +93,85 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
 
     t0 = _time.time()
     dev_imgs = torch.as_tensor(imgs).to(dev)
+    shard_imgs = shard_pages(shards, dev_imgs)
     if rgb:
-        gray = D.gray_601(dev_imgs)
-        synchronize(dev)
+        grays = [D.gray_601(x) for x in shard_imgs]
+        _synchronize(used)
         td.add('grey_conversion', t0)
     else:
-        gray = dev_imgs
+        grays = shard_imgs
 
     # the (host) line preparation is folded into this stage, as in the
     # JAX package
     t0 = _time.time() - prep_dt
-    lines = RaggedLines.from_page_boxes(page_boxes, h, w, dev)
-    if lines.n:
-        crops_t, crops_i, counts = line_thresholds(gray, lines, window)
-        selector = D.line_selector(crops_t, crops_i, counts, lines)
+    lines = [RaggedLines.from_page_boxes(page_boxes[s * per:(s + 1) * per],
+                                         h, w, d)
+             for s, d in enumerate(shards)]
+    crops = sharded_line_thresholds(grays, lines, window)
+    selectors = [None if c is None else D.line_selector(*c, ln)
+                 for c, ln in zip(crops, lines)]
     td.add('hocr_mask_gen', t0)
 
     t0 = _time.time()
-    mask, _sigma = D.global_mask(gray, window)
-    if lines.n:
-        mask = paste_lines(crops_t, crops_i, lines, selector, mask)
-    synchronize(dev)
+    masks = sharded_global_threshold(grays, window)
+    masks = sharded_paste(crops, lines, selectors, masks)
+    _synchronize(used)
     td.add('threshold', t0)
 
     if denoise_mask is not None and denoise_mask != DENOISE_NONE:
         t0 = _time.time()
-        mask = D.denoise_mask(mask, denoise_mask, exact_denoise)
-        synchronize(dev)
+        masks = sharded_denoise(masks, denoise_mask, exact_denoise)
+        _synchronize(used)
         td.add('fast_denoise' if denoise_mask == DENOISE_FAST else 'denoise',
                t0)
-    return mask, dev_imgs
+    return gather_pages(masks, dev), dev_imgs
 
 
 def decompose_layers(mask, dev_imgs, bg_downsample=None, fg_downsample=None,
-                     timing_data=None, errors=None, device=False):
+                     timing_data=None, errors=None, device=False,
+                     devices=None):
     """fg/bg phase: the radiate fills and the optional layer downsampling,
     as uint8 numpy arrays (downsampled sizes if requested), or with
     ``device=True`` as tensors left on the device, for a device consumer
     (the ``-J tpu`` batch transform).
 
     mask: bool (B, H, W) tensor; dev_imgs: uint8 (B, H, W[, 3]) tensor on
-    the same device.  ``errors`` (a set) collects the reference's
-    too-small-to-downsample warning."""
+    the same device.  devices: as for ``decompose_masks``; the fills run
+    on each device's shard, the layers gathered on the mask's device.
+    ``errors`` (a set) collects the reference's too-small-to-downsample
+    warning."""
     td = TimingData(timing_data)
+    home = mask.device
+    shards = split_devices(devices, mask.shape[0]) or [home]
+    used = set(shards) | {home}
+    masks, imgs = shard_pages(shards, mask, dev_imgs)
     t0 = _time.time()
-    fg = D.fg_layer(mask, dev_imgs)
-    synchronize(fg.device)
+    fg = gather_pages(sharded_optimise(masks, imgs, 3), home)
+    _synchronize(used)
     td.add('fg_partial_blur', t0)
     if fg_downsample:
         t0 = _time.time()
         fg = _downsample(fg, fg_downsample, errors)
-        synchronize(fg.device)
+        synchronize(home)
         td.add('fg_downsample', t0)
 
     t0 = _time.time()
-    bg = D.bg_layer(mask, dev_imgs)
-    synchronize(bg.device)
+    bg = gather_pages(sharded_optimise(masks, imgs, 10, invert=True), home)
+    _synchronize(used)
     td.add('bg_partial_blur', t0)
     if bg_downsample:
         t0 = _time.time()
         bg = _downsample(bg, bg_downsample, errors)
-        synchronize(bg.device)
+        synchronize(home)
         td.add('bg_downsample', t0)
     if device:
         return fg, bg
     return fg.cpu().numpy(), bg.cpu().numpy()
+
+
+def _synchronize(devices):
+    for d in devices:
+        synchronize(d)
 
 
 def _downsample(layer, factor, errors):

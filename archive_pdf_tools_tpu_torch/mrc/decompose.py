@@ -2,23 +2,22 @@
 
 Counterpart of the JAX package's ``mrc/decompose.py``: gray conversion,
 the noise estimate and its blur taps, the global threshold (pre-blur +
-Sauvola, k=0.34), the host line-selection heuristic, the mask despeckle
-(exact, one-pass or TV) and the fg/bg radiate fills.  Each kernel stage
-calls a wrapper that runs the hand-written CUDA kernel for a CUDA tensor
-and the plain PyTorch version for a CPU tensor.
+Sauvola, k=0.34), the host line-selection heuristic and the mask
+despeckle (exact, one-pass or TV); the fg/bg radiate fills are
+``ops/optimise_cuda.optimise`` (n=3 on the mask, n=10 on its inverse,
+``mrc.py:408-449``).  Each kernel stage calls a wrapper that runs the
+hand-written CUDA kernel for a CUDA tensor and the plain PyTorch version
+for a CPU tensor.
 """
 
 import numpy as np
 import torch
 
 from ..const import DENOISE_BREGMAN, DENOISE_FAST
-from ..ops.sigma import estimate_noise
 from ..ops.sigma_np import estimate_sigma_np
-from ..ops.threshold_cuda import (MAX_BLUR_RADIUS, RADIUS_BUCKETS,
-                                  blur_sauvola)
+from ..ops.threshold_cuda import MAX_BLUR_RADIUS, RADIUS_BUCKETS
 from ..ops.denoise import fast_mask_denoise_jacobi
 from ..ops.denoise_cuda import fast_mask_denoise
-from ..ops.optimise_cuda import optimise
 from ..ops.tv import denoise_bregman
 
 
@@ -57,28 +56,25 @@ def pick_blur_radius(sigma_est):
                 RADIUS_BUCKETS[-1])
 
 
+def blur_taps(sigma_ests, radius=None):
+    """Host taps for the noise estimates of a batch's page shards, each
+    in the smallest radius bucket covering the whole batch (or in
+    ``radius``): one device-to-host read, and the taps made for the
+    batch at once, so a shard's rows round as the whole batch's do.
+    -> a list of CPU f32 (pages, 2R+1), one a shard."""
+    sig = torch.cat([s.cpu() for s in sigma_ests])
+    if radius is None:
+        radius = pick_blur_radius(sig)
+    taps = blur_weights_from_sigma(sig, radius)
+    return list(taps.split([len(s) for s in sigma_ests]))
+
+
 def from_jax_state(taps_np, window, device):
     """The only state that crosses from the JAX package: the per-page blur
     taps (numpy f32 (B, 2R+1), e.g. from its ``blur_weights``) and the
     Sauvola window -> (taps tensor on ``device``, window)."""
     taps = torch.as_tensor(np.asarray(taps_np, np.float32), device=device)
     return taps.contiguous(), int(window)
-
-
-def global_mask(gray, window, taps=None):
-    """Pre-blur + global Sauvola through the blur+Sauvola kernel, with
-    taps in the smallest radius bucket covering the batch, or the given
-    ``taps`` (e.g. from ``from_jax_state``).
-    -> (bool mask, sigma_est or None)."""
-    if taps is not None:
-        return blur_sauvola(gray, taps, window), None
-    sigma_est = estimate_noise(gray)
-    # the taps are made on the host: exp and the normalising sum then
-    # round alike for the card and the CPU, whose masks so agree
-    taps = blur_weights_from_sigma(sigma_est.cpu(),
-                                   pick_blur_radius(sigma_est))
-    return (blur_sauvola(gray, taps.to(gray.device).contiguous(), window),
-            sigma_est)
 
 
 def select_lines(ones, ones_inv, size, sigma_fn, n_lines):
@@ -182,14 +178,3 @@ def denoise_mask(mask, mode, exact=True):
     if mode == DENOISE_BREGMAN:
         return denoise_bregman(mask)
     return mask
-
-
-def fg_layer(mask, img):
-    """Foreground radiate fill, n=3 (``mrc.py:408-415``)."""
-    return optimise(mask, img, 3)
-
-
-def bg_layer(mask, img):
-    """Background radiate fill with inverted mask, n=10
-    (``mrc.py:439-449``)."""
-    return optimise(~mask, img, 10)

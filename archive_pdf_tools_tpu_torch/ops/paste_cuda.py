@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..utils import cudabuild
+from ..utils.backend import to_device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -95,11 +96,7 @@ def paste_lines(crops_t, crops_i, lines, selector, gmask):
     b, h, w = gmask.shape
     out = torch.empty_like(gmask)
     with torch.cuda.device(gmask.device):
-        # from pinned memory, so the host need not wait for the stream (a
-        # pageable copy may); the caching host allocator keeps the buffer
-        # until the copy is done
-        sel = torch.from_numpy(selector).pin_memory().to(gmask.device,
-                                                        non_blocking=True)
+        sel = to_device(torch.from_numpy(selector), gmask.device)
         err = lib.apt_paste(crops_t.data_ptr(), crops_i.data_ptr(),
                             lines.paste_plan.data_ptr(), sel.data_ptr(),
                             gmask.data_ptr(), out.data_ptr(), b, h, w,

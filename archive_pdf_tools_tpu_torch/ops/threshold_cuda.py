@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from ..utils import cudabuild
-from .sauvola import sauvola_mask, sauvola_constants
+from .sauvola import sauvola_constants, sauvola_mask, sauvola_window
 from .sigma import symmetric_index
 
 MAX_BLUR_RADIUS = 48             # supports sigma_est up to ~120
@@ -162,3 +162,20 @@ def blur_sauvola(img, taps, window, k=0.34, R=128.0):
 
 
 blur_sauvola.launches = 0
+
+
+def threshold_image(img, dpi, k=0.34):
+    """``mrc.threshold_image`` (``mrc.py:58-87``) on a uint8 (B, H, W)
+    batch: the window from the DPI, R=128 -> bool ink mask.  On a CUDA
+    tensor this is the blur + Sauvola kernel with identity taps (no
+    blur); on a CPU tensor ``sauvola_mask``."""
+    win = sauvola_window(dpi)
+    if img.device.type == 'cpu':
+        return sauvola_mask(img, win, win, k, 128.0)
+    # identity taps in the smallest bucket: x * 1 plus zeros is x, so
+    # the blur changes no pixel
+    r = RADIUS_BUCKETS[0]
+    ident = torch.zeros((img.shape[0], 2 * r + 1), dtype=torch.float32,
+                        device=img.device)
+    ident[:, r] = 1.0
+    return blur_sauvola(img.contiguous(), ident, win, k)

@@ -48,6 +48,7 @@ from ..inputs.hocr import (hocr_page_iterator, hocr_page_to_word_data,
 from ..inputs.scandata import Scandata
 from ..mrc.api import decompose_masks, decompose_layers
 from ..ops.grayconvert import special_gray_convert
+from ..parallel.mesh import default_devices
 from ..pdf.builder import DocumentBuilder
 from ..pdf.reader import PdfReader
 from ..pdf.writer import Name
@@ -389,7 +390,12 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
                       resume=False, errors=None, grayscale_pdf=False,
                       force_1bit_output=False, jbig2_symbol_mode=False,
                       jbig2_bands=1, device=None):
-    """Pass 2 (``recode.py:266-529``), batched on ``device``."""
+    """Pass 2 (``recode.py:266-529``), batched on ``device``, the
+    caller's device argument: with none named, each batch shards its
+    pages over every visible card (``parallel/mesh.default_devices``,
+    ``mrc/api.py``)."""
+    devices = default_devices(device)
+    device = resolve_device(device)
     timing_data = _TimingSink()
     if img_dir is not None:
         os.makedirs(img_dir, exist_ok=True)
@@ -521,7 +527,7 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             pages, [j.word_data for j in batch_jobs], dpi=batch_jobs[0].dpi,
             downsample=downsample, denoise_mask=denoise_mask,
             exact_denoise=exact_denoise, timing_data=timing_data,
-            device=device)
+            device=device, devices=devices)
 
         if force_1bit_output:
             # the inverted mask alone, as a mask-only page
@@ -546,7 +552,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             mask_dev, dev_imgs,
             bg_downsample=None if all_hq else bg_downsample,
             fg_downsample=None if all_hq else fg_downsample,
-            timing_data=timing_data, errors=errors, device=dev_layers)
+            timing_data=timing_data, errors=errors, device=dev_layers,
+            devices=devices)
         t = time()
         packed_np = pack_mask_bits(mask_dev).cpu().numpy()
         h_m, w_m = int(mask_dev.shape[1]), int(mask_dev.shape[2])
@@ -566,7 +573,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             sel = torch.tensor(hq_idx, device=mask_dev.device)
             f, b = decompose_layers(mask_dev.index_select(0, sel),
                                     dev_imgs.index_select(0, sel),
-                                    timing_data=timing_data, errors=errors)
+                                    timing_data=timing_data, errors=errors,
+                                    devices=devices)
             hq_layers = {i: (f[k], b[k]) for k, i in enumerate(hq_idx)}
 
         fg_qb, bg_qb = {}, {}
@@ -757,7 +765,11 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     """Whole-tool pipeline (``recode.py:562-796``); returns
     {'errors': set, 'compression_ratio': float}.  Same arguments as the
     JAX package's ``recode`` plus ``device`` (default the first GPU;
-    ``'cpu'`` runs the plain PyTorch versions of the kernels).
+    ``'cpu'`` runs the plain PyTorch versions of the kernels).  With no
+    ``device`` named and more than one card visible, each batch shards
+    its pages over every visible card, the JAX package's mesh rule
+    (``recode.py:324-338``; ``parallel/mesh.default_devices``); the bytes
+    are the one-device run's.
 
     profile_dir: the span the JAX package traces with jax.profiler (the
     source's opening, pass 1 and pass 2) runs under torch.profiler, with
@@ -765,7 +777,7 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     Chrome trace, ``profile_dir/trace.json``.  The PDF is the same."""
     if from_pdf is None and from_imagestack is None:
         raise ValueError('recode: from_pdf or from_imagestack is required')
-    device = resolve_device(device)
+    home = resolve_device(device)
     errors = set()
     start_time = time()
 
@@ -791,7 +803,7 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     if profile_dir:
         from torch.profiler import profile, ProfilerActivity
         activities = [ProfilerActivity.CPU]
-        if device.type == 'cuda':
+        if home.type == 'cuda':
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.__enter__()

@@ -14,7 +14,10 @@ The files are read as text; nothing of the JAX package is imported.
 
 Two modules of the port merge a shared module with the port's own code
 and are kept by hand: ``codecs/mrc_encode.py`` and ``cli/recode_pdf.py``
-(their headers name the copied parts).
+(their headers name the copied parts).  Modules of the port's own that
+hold a copied function (``REGIONS``) carry it between two marker lines,
+``# copy_shared: <source>:<first>-<last>`` and ``# copy_shared: end``;
+the script rewrites what lies between them.
 """
 
 import os
@@ -115,6 +118,8 @@ COPIES = {
                             "    cargv += [args.outfile, '--bg-downsample', "
                             "str(args.bg_downsample),\n"
                             "              '--device', args.device]\n")]),
+    'cli/pdf_to_imagestack.py': ('cli/pdf_to_imagestack.py', None, []),
+    'cli/pdfrenderer_cli.py': ('cli/pdfrenderer_cli.py', None, []),
     'validators/__init__.py': ('validators/__init__.py', None, []),
     'validators/jbig2_check.py': ('validators/jbig2_check.py', None, []),
     'validators/jp2_check.py': ('validators/jp2_check.py', None, []),
@@ -132,6 +137,14 @@ COPIES = {
 SIGMA_BODY = ('ops/golden.py', 141, 190)
 
 DATA = {'data/glyphless.ttf': 'data/glyphless.ttf'}
+
+# port path: [(source path, first line, last line), ...], the copied
+# regions of a module of the port's own, in file order
+REGIONS = {
+    'parallel/sharded.py': [('parallel/sharded.py', 148, 170)],
+    'parallel/multihost.py': [('parallel/multihost.py', 41, 91)],
+}
+_END = '# copy_shared: end\n'
 
 
 def _lines(rel, first=None, last=None):
@@ -166,6 +179,24 @@ def render(port_rel):
     return head + body
 
 
+def render_regions(port_rel, text):
+    """``text``, the port's module at ``port_rel``, with each copied
+    region as the source has it today."""
+    for rel, first, last in REGIONS[port_rel]:
+        begin = '# copy_shared: archive_pdf_tools_tpu/%s:%d-%d\n' % (
+            rel, first, last)
+        if text.count(begin) != 1:
+            raise SystemExit('copy_shared: %s: marker %r found %d times'
+                             % (port_rel, begin, text.count(begin)))
+        a = text.index(begin) + len(begin)
+        b = text.find(_END, a)
+        if b < 0:
+            raise SystemExit('copy_shared: %s: no end marker after %r'
+                             % (port_rel, begin))
+        text = text[:a] + _lines(rel, first, last) + text[b:]
+    return text
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     check = '--check' in argv
@@ -196,6 +227,17 @@ def main(argv=None):
         if not check:
             os.makedirs(os.path.dirname(dst), exist_ok=True)
             shutil.copyfile(os.path.join(SOURCE, src), dst)
+    for port_rel in REGIONS:
+        dst = os.path.join(PORT, port_rel)
+        with open(dst, encoding='utf-8') as fp:
+            old = fp.read()
+        text = render_regions(port_rel, old)
+        if text == old:
+            continue
+        stale.append(port_rel)
+        if not check:
+            with open(dst, 'w', encoding='utf-8') as fp:
+                fp.write(text)
     for port_rel in stale:
         print(('stale: ' if check else 'wrote: ') + port_rel)
     return 1 if check and stale else 0

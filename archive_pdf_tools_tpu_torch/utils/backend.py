@@ -27,6 +27,17 @@ def synchronize(device):
         torch.cuda.synchronize(device)
 
 
+def to_device(t, device):
+    """A host tensor on ``device``.  To a GPU it goes from pinned memory,
+    so the host need not wait for the device's queued work (a pageable
+    copy may); the caching host allocator keeps the pinned buffer until
+    the copy is done."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def pack_mask_bits(mask):
     """Pack a bool (B, H, W) mask to (B, H, ceil(W/8)) uint8 on its
     device, in np.unpackbits big-endian bit order (8x less

@@ -47,7 +47,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Sauvola masks (bit-equal), and the split-Bregman TV denoise of
    ``--denoise-mask bregman`` on one page's mask (the > 0.4 masks agree
    at >= 0.9999; the CPU form runs on a thread from phase 2 on), timed
-   at batch 8 too.
+   at batch 8 too.  (2e) the fused step (``mrc/step.py:mrc_full_step``)
+   on phase 2's batch with the selector the main path picks: its mask,
+   fg, bg and line counts equal ``decompose_masks`` +
+   ``decompose_layers``' bit for bit, each of K1-K5 launched once (K1
+   twice), its CUDA-event time printed beside the sum of K1-K5's phase 2
+   times; then the step split over two shards on the one card
+   (``parallel/sharded.py:sharded_mrc_step`` over ``[cuda:0, cuda:0]``)
+   and over the visible cards where there are several, equal bit for
+   bit.
 3. End to end, through the recode_pdf_torch CLI: a 16-page 400-DPI book
    with hOCR lines (15 gray pages, 1 RGB), once with default flags, once
    with ``--bg-downsample 3`` and once with the in-tree JPEG2000 encoder
@@ -73,6 +81,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bregman`` (no fill and no despeckle launch); and compress-pdf-images
    with hOCR on a two-page JPEG PDF of the book, whose masks must equal
    a ``--device cpu`` run's bit for bit (that run on the thread too).
+   (3e) a 3-page gray book recoded in batches of 2 split over
+   ``[cuda:0, cuda:0]`` (put in place of the several cards
+   ``parallel/mesh.default_devices`` would give; the first batch split
+   over two shards, K3 launched three times) gives the one-device bytes, with Pillow's JPEG2000 and with
+   ``-J tpu``; the debug tools threshold_image (K3 with identity taps and
+   K2), partial_blur (K1) and compress (K1 twice) on one full-size RGB
+   page give the bytes of their ``--device cpu`` runs; mrcview,
+   pdfimagesmrc, pdf-to-imagestack_torch and pdfrenderer_torch run on
+   phase 3b's small book (its card PDF and hOCR) and exit 0.
 
 The script's wall time, the card's name and power limit and the
 kernels' JSON summary come before the last line (``library_ms`` is null
@@ -80,6 +97,12 @@ for every kernel: no single PyTorch call computes any of these
 functions), which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the run exits
 1 and prints no result.
+
+``python3 chip_smoke.py --cards`` is for a host with several cards: the
+build, then phase 2e's step over every visible card against one, and
+``recode_pdf_torch -J tpu`` on the 16-page book with no ``--device``
+(each batch split over every card) against ``--device cuda:0``, in the
+order one, all, all, one, pages/s each and the bytes equal.
 """
 
 import glob
@@ -804,15 +827,17 @@ def _counted(fn):
     return out, {k: f.launches for k, f in counters.items()}
 
 
-def _run_cli(args, out, insize, n_pages, need):
-    """One recode_pdf_torch CLI run on the card; its output must pass the
-    PDF/A validator and the launch counts of that run reach ``need``.
-    Returns the counts."""
+def _run_cli(args, out, insize, n_pages, need, device=DEV):
+    """One recode_pdf_torch CLI run on ``device`` (None: no --device,
+    every visible card); its output must pass the PDF/A validator and
+    the launch counts of that run reach ``need``.  Returns the counts."""
     from archive_pdf_tools_tpu_torch.validators import validate_pdfa
     from archive_pdf_tools_tpu_torch.cli.recode_pdf import main
+    args = list(args) + ['-o', out, '-v']
+    if device:
+        args += ['--device', device]
     t0 = time.time()
-    rc, launches = _counted(
-        lambda: main(list(args) + ['-o', out, '-v', '--device', DEV]))
+    rc, launches = _counted(lambda: main(args))
     wall = time.time() - t0
     if rc != 0:
         raise SystemExit('FAIL: recode_pdf_torch exited %d' % rc)
@@ -1003,10 +1028,12 @@ def _cpu_tv_reference(page):
     its TV denoise > 0.4 on the CPU: phase 2d's reference, run on a
     thread while the card runs phases 2-2c."""
     import torch
-    from archive_pdf_tools_tpu_torch.mrc import decompose as D
     from archive_pdf_tools_tpu_torch.ops.tv import denoise_tv_bregman
+    from archive_pdf_tools_tpu_torch.parallel.sharded import \
+        sharded_global_threshold
     t = time.time()
-    mask, _ = D.global_mask(torch.from_numpy(page[None]), WINDOW)
+    (mask,) = sharded_global_threshold([torch.from_numpy(page[None])],
+                                       WINDOW)
     tv = denoise_tv_bregman(mask.to(torch.float32)) > 0.4
     return mask, tv, time.time() - t
 
@@ -1014,12 +1041,13 @@ def _cpu_tv_reference(page):
 def phase_offpath_ops(pages, tv_ref):
     """2d: the off-path ops on the card against their CPU form."""
     import torch
-    from archive_pdf_tools_tpu_torch.mrc import decompose as D
     from archive_pdf_tools_tpu_torch.ops.denoise import \
         fast_mask_denoise_jacobi
     from archive_pdf_tools_tpu_torch.ops.grayconvert import \
         special_gray_convert
     from archive_pdf_tools_tpu_torch.ops.tv import denoise_tv_bregman
+    from archive_pdf_tools_tpu_torch.parallel.sharded import \
+        sharded_global_threshold
     print('phase 2d: off-path ops (torch ops) on the card vs their CPU '
           'form, %dx%d' % (H, W))
     rgb = torch.from_numpy(pages[N_PAGES - 1][None])
@@ -1033,7 +1061,7 @@ def phase_offpath_ops(pages, tv_ref):
     del rgb_dev
 
     gray = torch.from_numpy(np.stack(pages[:BATCH])).to(DEV)
-    mask, _ = D.global_mask(gray, WINDOW)
+    (mask,) = sharded_global_threshold([gray], WINDOW)
     _check_equal('fast_mask_denoise_jacobi',
                  fast_mask_denoise_jacobi(mask, 4, 2).cpu(),
                  fast_mask_denoise_jacobi(mask.cpu(), 4, 2))
@@ -1281,6 +1309,277 @@ def phase_ablate(pages):
     return results, launches
 
 
+def _slots_of(lines, sel):
+    """The JAX step's line slots of ``RaggedLines`` and their selector:
+    slot 0 the 1x1 dummy, then the lines in document order."""
+    n = lines.n + 1
+    boxes = np.zeros((4, n), np.int32)
+    boxes[1, 0] = boxes[3, 0] = 1
+    boxes[:, 1:] = lines.boxes.T
+    pages = np.concatenate([[0], lines.pages]).astype(np.int32)
+    return boxes, pages, np.concatenate([[0], sel]).astype(np.int32)
+
+
+def _need_exactly(what, launches, want):
+    got = {k: launches[k] for k in want}
+    if got != want or launches['dwt97']:
+        raise SystemExit('FAIL: %s launched %s, expected %s'
+                         % (what, launches, want))
+
+
+def phase_step(pages, wds, kernels):
+    """2e: the fused step (mrc/step.py) on phase 2's batch, against the
+    main path's bytes, its time beside K1-K5's, and split over two
+    shards on the one card, then over the visible cards."""
+    import torch
+    from archive_pdf_tools_tpu_torch.mrc import api as TA
+    from archive_pdf_tools_tpu_torch.mrc import decompose as D
+    from archive_pdf_tools_tpu_torch.mrc.hocr_prep import prepare_lines
+    from archive_pdf_tools_tpu_torch.mrc.step import mrc_full_step
+    from archive_pdf_tools_tpu_torch.ops.lines_cuda import (
+        RaggedLines, line_thresholds)
+    from archive_pdf_tools_tpu_torch.parallel import mesh, sharded
+    dev = torch.device(DEV)
+    print('phase 2e: mrc_full_step, batch %d x %dx%d, window %d, against '
+          'decompose_masks + decompose_layers' % (BATCH, H, W, WINDOW))
+    mask, imgs = TA.decompose_masks(pages, wds, dpi=DPI, device=DEV)
+    fg, bg = TA.decompose_layers(mask, imgs, device=True)
+    lines = RaggedLines.from_page_boxes(
+        [prepare_lines(wd, W, H) for wd in wds], H, W, dev)
+    ct, ci, counts = line_thresholds(imgs, lines, WINDOW)
+    sel = D.line_selector(ct, ci, counts, lines)
+    del ct, ci
+    boxes, spages, ssel = _slots_of(lines, sel)
+
+    def step():
+        return mrc_full_step(imgs, boxes, spages, ssel, WINDOW)
+
+    out, launches = _counted(step)
+    _need_exactly('mrc_full_step', launches, dict(
+        blur_sauvola=1, line_sauvola=1, paste=1, despeckle=1, optimise=2))
+    for what, got, ref in (('mask', out[0], mask), ('fg', out[1], fg),
+                           ('bg', out[2], bg)):
+        _check_equal('mrc_full_step %s vs the main path' % what, got, ref)
+    ones, ones_inv = out[3]
+    _check_equal('mrc_full_step line counts',
+                 torch.stack([ones[1:], ones_inv[1:]], 1), counts)
+    ms = _cuda_ms(step, 5)
+    print('  == the main path (mask, fg, bg, %d line counts); launches %s; '
+          '%.3f ms (CUDA events, median of 5)' % (lines.n, launches, ms))
+    k_ms = None
+    if kernels:
+        parts = [kernels['line_sauvola'][0], kernels['blur_sauvola'][0],
+                 kernels['paste'][0], kernels['despeckle'][0]] + \
+            kernels['optimise'][1][:2]
+        k_ms = sum(r['ms'] for r in parts)
+        print('  beside K1-K5 %.3f ms (phase 2: K4 + K3 r=4 + K5 + K2 + K1 '
+              'n=3 + K1 n=10)' % k_ms)
+
+    def split_step(devices):
+        sb, sp, ss = sharded.split_lines_per_shard(boxes, spages, ssel,
+                                                   BATCH, len(devices))
+        fn = sharded.sharded_mrc_step(devices, WINDOW)
+        return lambda: fn(imgs, sb, sp, ss)
+
+    two = split_step([dev, dev])
+    got, launches = _counted(two)
+    _need_exactly('sharded_mrc_step over [%s, %s]' % (DEV, DEV), launches,
+                  dict(blur_sauvola=2, line_sauvola=2, paste=2, despeckle=2,
+                       optimise=4))
+    for what, g, r in zip(('mask', 'fg', 'bg'), got, out):
+        _check_equal('two-shard step %s' % what, g, r)
+    ms2 = _cuda_ms(two, 5)
+    print('  sharded_mrc_step over [%s, %s] (2 shards of %d): == the '
+          'one-device step; launches %s; %.3f ms (median of 5)'
+          % (DEV, DEV, BATCH // 2, launches, ms2))
+    n_dev = torch.cuda.device_count()
+    print('  torch.cuda.device_count() = %d' % n_dev)
+    if n_dev > 1:
+        k = max(d for d in range(1, n_dev + 1) if BATCH % d == 0)
+        cards = split_step(mesh.page_devices(k))
+        for what, g, r in zip(('mask', 'fg', 'bg'), cards(), out):
+            _check_equal('step over %d cards %s' % (k, what), g, r)
+        print('  sharded_mrc_step over %d cards: == the one-device step; '
+              '%.3f ms (median of 5)' % (k, _cuda_ms(cards, 5)))
+    return {'ms': ms, 'k_ms': k_ms, 'two_ms': ms2}
+
+
+def _gray_book(tmp):
+    """Three noise-free gray 320x416 pages and their hOCR (phase 3e)."""
+    from PIL import Image
+    fx = _tests_module('fixtures')
+    hocr = []
+    for i in range(3):
+        img, words = fx.render_book_page(320, 416, seed=10 + i, noise=0)
+        Image.fromarray(img).save(os.path.join(tmp, 'gray_%04d.png' % i))
+        hocr.append(fx.words_to_hocr_page(words, 320, 416, page_no=i,
+                                          dpi=100))
+    hocr_path = os.path.join(tmp, 'gray.hocr')
+    with open(hocr_path, 'w', encoding='utf-8') as fp:
+        fp.write(fx.HOCR_TEMPLATE % '\n'.join(hocr))
+    return os.path.join(tmp, 'gray_*.png'), hocr_path
+
+
+def _tool_outputs(tmp, src, device):
+    """threshold-image (with the despeckle), partial-blur (the fill) and
+    compress of the page ``src`` on ``device``: their output bytes."""
+    from archive_pdf_tools_tpu_torch.tools import (compress, partial_blur,
+                                                   threshold_image)
+    tag = 'card' if device == DEV else 'cpu'
+    mask = os.path.join(tmp, 'tool_mask_%s.png' % tag)
+    blur = os.path.join(tmp, 'tool_fill_%s.png' % tag)
+    pre = os.path.join(tmp, 'tool_%s' % tag)
+    for mod, args in ((threshold_image, [src, mask, '--dpi', str(DPI),
+                                         '--denoise', 'fast']),
+                      (partial_blur, [src, mask, blur, '--mode',
+                                      'optimise']),
+                      (compress, [src, mask, pre])):
+        if mod.main(args + ['--device', device]) != 0:
+            raise SystemExit('FAIL: %s --device %s' % (mod.__name__, device))
+    out = {}
+    for name in (mask, blur, pre + '_fg.jp2', pre + '_bg.jp2'):
+        with open(name, 'rb') as fp:
+            out[os.path.basename(name).replace(tag, '*')] = fp.read()
+    return out
+
+
+def phase_split_and_tools(tmp, page):
+    """3e: a recode split over two shards on the one card, the debug
+    tools card against CPU, and the host CLIs."""
+    import torch
+    from archive_pdf_tools_tpu_torch import recode
+    from archive_pdf_tools_tpu_torch.parallel import mesh
+    from archive_pdf_tools_tpu_torch.pipeline import recode as R
+    from PIL import Image
+    os.environ['SOURCE_DATE_EPOCH'] = '1700000000'
+    stack, hocr = _gray_book(tmp)
+    print('phase 3e: 3-page gray book, batch 2, split over [%s, %s] '
+          'against [%s]' % (DEV, DEV, DEV))
+    for impl in ('pillow', 'tpu'):
+        outs, runs = [], []
+        for devices in ([DEV, DEV], [DEV]):
+            outs.append(os.path.join(tmp, 'split%d_%s.pdf'
+                                     % (len(devices), impl)))
+            # the devices the pipeline takes from several visible cards
+            R.default_devices = lambda device, d=devices: [
+                torch.device(x) for x in d]
+            try:
+                _r, launches = _counted(lambda: recode(
+                    from_imagestack=stack, hocr_file=hocr, out_pdf=outs[-1],
+                    dpi=100, jbig2=True, batch_pages=2,
+                    jpeg2000_implementation=impl, device=DEV))
+            finally:
+                R.default_devices = mesh.default_devices
+            runs.append(launches)
+        with open(outs[0], 'rb') as a, open(outs[1], 'rb') as b:
+            same = a.read() == b.read()
+        print('  -J %s: two shards %s the one-device run; K3 launches %d '
+              '(2 shards + 1 page alone) and %d' % (
+                  impl, 'byte-identical with' if same else 'DIFFERENT from',
+                  runs[0]['blur_sauvola'], runs[1]['blur_sauvola']))
+        if not same or runs[0]['blur_sauvola'] != 3 \
+                or runs[1]['blur_sauvola'] != 2:
+            raise SystemExit('FAIL: the two-shard recode (-J %s)' % impl)
+
+    src = os.path.join(tmp, 'tool_page.png')
+    Image.fromarray(page).save(src)
+    print('phase 3e: threshold_image --denoise fast, partial_blur --mode '
+          'optimise and compress on one %dx%d RGB page, card vs --device '
+          'cpu' % (H, W))
+    t0 = time.time()
+    card, launches = _counted(lambda: _tool_outputs(tmp, src, DEV))
+    t_card = time.time() - t0
+    _need_exactly('the tools', launches, dict(
+        blur_sauvola=1, despeckle=1, optimise=3, line_sauvola=0, paste=0))
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.time()
+    cpu = _tool_outputs(tmp, src, 'cpu')
+    t_cpu = time.time() - t0
+    for name, data in card.items():
+        print('  %-22s %9d bytes, card %s CPU' % (
+            name, len(data), '==' if data == cpu[name] else '!='))
+        if data != cpu[name]:
+            raise SystemExit('FAIL: %s differs between card and CPU' % name)
+    print('  card %.1f s (launches %s), CPU %.1f s' % (t_card, launches,
+                                                        t_cpu))
+
+    # phase 3b's small book, its MRC PDF and hOCR
+    pdf, hocr = (os.path.join(tmp, 'small_card.pdf'),
+                 os.path.join(tmp, 'small.hocr'))
+    for args in ([sys.executable, '-m',
+                  'archive_pdf_tools_tpu_torch.tools.mrcview', pdf,
+                  os.path.join(tmp, 'view.pdf')],
+                 [sys.executable, '-m',
+                  'archive_pdf_tools_tpu_torch.tools.pdfimagesmrc', pdf],
+                 [sys.executable, os.path.join(ROOT, 'bin',
+                                               'pdf-to-imagestack_torch'),
+                  pdf, os.path.join(tmp, 'stack.zip')],
+                 [sys.executable, os.path.join(ROOT, 'bin',
+                                               'pdfrenderer_torch'),
+                  '-T', hocr, '-o', os.path.join(tmp, 'text.pdf')]):
+        r = subprocess.run(args, capture_output=True, text=True,
+                           timeout=300, cwd=ROOT)
+        name = os.path.basename(args[2 if args[1] == '-m' else 1])
+        print('  %s: exit %d; %s' % (name, r.returncode,
+                                     (r.stdout.strip().splitlines()
+                                      or [''])[-1]))
+        if r.returncode != 0:
+            raise SystemExit('FAIL: %s exited %d: %s'
+                             % (name, r.returncode, r.stderr[-500:]))
+
+
+def phase_cards(pages, wds):
+    """``--cards``: recode_pdf_torch -J tpu on the book with no
+    --device, so a batch splits over every visible card, against
+    --device cuda:0, in the order one, all, all, one; equal bytes."""
+    import torch
+    os.environ['SOURCE_DATE_EPOCH'] = '1700000000'
+    n_dev = torch.cuda.device_count()
+    print('phase cards: recode_pdf_torch -J tpu, %d pages of %dx%d, no '
+          '--device (%d cards) against --device %s'
+          % (len(pages), H, W, n_dev, DEV))
+    with tempfile.TemporaryDirectory(prefix='chip_smoke') as tmp:
+        glob_pat, hocr_path = _write_book(tmp, 'book', pages, wds)
+        insize = sum(os.path.getsize(p) for p in glob.glob(glob_pat))
+        outs, k3 = [], {}
+        for i, device in enumerate((DEV, None, None, DEV)):
+            print('  %s:' % (device or 'every card'))
+            outs.append(os.path.join(tmp, 'cards%d.pdf' % i))
+            launches = _run_cli(
+                ['--from-imagestack', glob_pat, '--hocr-file', hocr_path,
+                 '--dpi', str(DPI), '-J', 'tpu'], outs[-1], insize,
+                len(pages), {}, device=device)
+            k3[device] = launches['blur_sauvola']
+        data = []
+        for out in outs:
+            with open(out, 'rb') as fp:
+                data.append(fp.read())
+    if any(d != data[0] for d in data):
+        raise SystemExit('FAIL: the recode over every card differs from '
+                         'the one-card run')
+    print('  the four runs byte-identical; K3 launches %d over every card, '
+          '%d on %s' % (k3[None], k3[DEV], DEV))
+    if n_dev > 1 and k3[None] <= k3[DEV]:
+        raise SystemExit('FAIL: no batch split over the cards')
+
+
+def main_cards():
+    """``python3 chip_smoke.py --cards``: on a host with several cards,
+    the step and a recode split over all of them against one card."""
+    import torch
+    smi = phase_build()
+    book = make_pages()
+    pages = [p for p, _ in book]
+    wds = [wd for _, wd in book]
+    phase_step(pages[:BATCH], wds[:BATCH], None)
+    phase_cards(pages, wds)
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1288,6 +1587,8 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:] == ['--cards']:
+        return main_cards()
     t_start = time.time()
     smi = phase_build()
     t0 = time.time()
@@ -1317,6 +1618,9 @@ def main():
     kernels = phase_kernels(pages[:BATCH], wds[:BATCH])
     phase_odd_shapes()
     ablate, ablate_launches = phase_ablate(pages[:BATCH])
+    t_step = time.time()
+    step = phase_step(pages[:BATCH], wds[:BATCH], kernels)
+    t_step = time.time() - t_step
     t_new = time.time()
     phase_offpath_ops(pages, tv_ref)
     t_new = time.time() - t_new
@@ -1346,10 +1650,16 @@ def main():
         phase_small_options(tmp)
         phase_full_options(tmp, pages, wds, comp_ref)
         t_new += time.time() - t0
+        t0 = time.time()
+        phase_split_and_tools(tmp, pages[N_PAGES - 1])
+        t_step += time.time() - t0
     refs.shutdown()
     tmp_ref.cleanup()
     print('phases 2d and 3d: %.1f s of wall time (their CPU references ran '
           'on a thread from phase 2 on)' % t_new)
+    print('phases 2e and 3e: %.1f s of wall time; the step %.3f ms, two '
+          'shards %.3f ms, K1-K5 %.3f ms' % (t_step, step['ms'],
+                                             step['two_ms'], step['k_ms']))
     if 'jax' in sys.modules:
         raise SystemExit('FAIL: jax was imported')
 

@@ -18,6 +18,7 @@ from archive_pdf_tools_tpu.mrc import api as JA
 
 from archive_pdf_tools_tpu_torch.mrc import api as TA
 from archive_pdf_tools_tpu_torch.ops import lines_cuda, paste_cuda
+from archive_pdf_tools_tpu_torch.parallel import sharded
 
 import tests.test_decompose as JT
 from tests.scanfix import synth_scan
@@ -264,7 +265,7 @@ def test_inverted_band_selects_inverse_crop(monkeypatch):
         seen['selector'] = np.asarray(selector)
         return real(crops_t, crops_i, lines, selector, gmask)
 
-    monkeypatch.setattr(TA, 'paste_lines', spy)
+    monkeypatch.setattr(sharded, 'paste_lines', spy)
     mask, _ = TA.decompose_masks([img], [wd], dpi=150, device='cpu')
     assert seen['selector'][0] == 2      # line 0 is the inverted band
     assert (seen['selector'][1:] == 1).any()
@@ -305,7 +306,7 @@ def test_page_of_2000_tiny_lines_drops_none(monkeypatch):
         seen['n'] = rl.n
         return real(gray, rl, window, *a)
 
-    monkeypatch.setattr(TA, 'line_thresholds', spy)
+    monkeypatch.setattr(sharded, 'line_thresholds', spy)
     mask, _ = TA.decompose_masks([page], [wd], dpi=100, device='cpu')
     assert seen['n'] == 2100
     ref = JT.mask_pipeline_ref(page, wd, dpi=100)

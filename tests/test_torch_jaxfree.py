@@ -2,7 +2,8 @@
 the JAX package (``archive_pdf_tools_tpu``), and its main path (hOCR
 lines, layer downsampling, scandata, --from-pdf and -J tpu included)
 needs no lxml (GPU machines may not ship it), nor do the off-path
-options and the compress-pdf-images and pdfcomp tools.  The runs below
+options, the compress-pdf-images, pdfcomp, pdf-to-imagestack and
+pdfrenderer tools and the debug tools.  The runs below
 block all three imports, with ``APT_PLATFORM=cpu`` set as the JAX
 package's tools set it."""
 
@@ -43,7 +44,11 @@ for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize',
              'const', 'validators.pdfa_check', 'pdf.builder',
              'cli.pdf_to_hocr', 'utils.nativebuild', 'ops.grayconvert',
              'ops.tv', 'pdf.rewrite', 'cli.compress_pdf_images',
-             'cli.pdfcomp'):
+             'cli.pdfcomp', 'mrc.step', 'parallel.mesh', 'parallel.sharded',
+             'parallel.multihost', 'ops.filters', 'tools.threshold_image',
+             'tools.partial_blur', 'tools.compress', 'tools.mrcview',
+             'tools.pdfimagesmrc', 'cli.pdf_to_imagestack',
+             'cli.pdfrenderer_cli'):
     assert pkg.__name__ + '.' + name in names, name
 ''' + _NO_JAX_PKG + r'''
 print(len(names), sys.modules['jax'] is not None)
@@ -269,6 +274,54 @@ def test_compress_tools_run_without_jax_and_lxml(tmp_path):
     assert r.stdout.strip().endswith('rc 0')
 
 
+_BLOCKED_RUN = _BLOCK + r'''
+import runpy
+sys.path.insert(0, %(root)r)
+sys.argv = %(argv)r
+try:
+    if sys.argv[0].endswith('_torch'):
+        runpy.run_path(sys.argv[0], run_name='__main__')
+    else:
+        runpy.run_module(sys.argv[0], run_name='__main__')
+except SystemExit as exc:
+    if exc.code:
+        raise
+''' + _NO_JAX_PKG
+
+
+def _run_blocked(argv):
+    """argv[0] (a bin/ script or a module of the port) run as __main__
+    with jax, lxml and the JAX package blocked; it must exit 0 having
+    imported nothing of the JAX package."""
+    code = _BLOCKED_RUN % {'root': ROOT, 'argv': [str(a) for a in argv]}
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, env=_env(), timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return r.stdout
+
+
+def test_new_clis_and_tools_run_without_jax_and_lxml(tmp_path):
+    """pdf-to-imagestack_torch and pdfrenderer_torch on a small book's
+    PDF and hOCR, and the threshold-image tool on its first page."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from fixtures import make_book
+    from PIL import Image
+    stack, hocr, pages = make_book(tmp_path, n_pages=2, w=200, h=260,
+                                   dpi=100)
+    pdf = tmp_path / 'text.pdf'
+    _run_blocked([os.path.join(ROOT, 'bin', 'pdfrenderer_torch'), '-T',
+                  hocr, '-o', pdf])
+    assert pdf.stat().st_size > 0
+    out = _run_blocked([os.path.join(ROOT, 'bin', 'pdf-to-imagestack_torch'),
+                        pdf, tmp_path / 'stack.zip'])
+    assert (tmp_path / 'stack.zip').stat().st_size > 0, out
+    Image.fromarray(pages[0][0]).save(str(tmp_path / 'p0.png'))
+    out = _run_blocked([PORT + '.tools.threshold_image', tmp_path / 'p0.png',
+                        tmp_path / 'mask.png', '--dpi', '100', '--denoise',
+                        'fast', '--device', 'cpu'])
+    assert 'ink fraction' in out
+
+
 def test_scandata_and_from_pdf_run_without_jax_and_lxml(tmp_path):
     code = _FROM_PDF_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
                                      'tests': os.path.join(ROOT, 'tests')}
@@ -304,7 +357,8 @@ def test_pyproject_names_every_entry_point_of_the_port():
         scripts = tomllib.load(fp)['project']['scripts']
     ours = {k: v for k, v in scripts.items() if v.startswith(PORT + '.')}
     assert set(ours) == {'recode_pdf_torch', 'compress-pdf-images_torch',
-                         'pdfcomp_torch'}
+                         'pdfcomp_torch', 'pdf-to-imagestack_torch',
+                         'pdfrenderer_torch'}
     sys.path.insert(0, ROOT)
     for name, target in ours.items():
         module, func = target.split(':')

@@ -33,6 +33,8 @@ from archive_pdf_tools_tpu_torch.ops.paste_cuda import paste_lines
 from archive_pdf_tools_tpu_torch.ops.sigma import estimate_noise
 from archive_pdf_tools_tpu_torch.ops.sauvola import sauvola_mask
 from archive_pdf_tools_tpu_torch.mrc import decompose as TD
+from archive_pdf_tools_tpu_torch.parallel.sharded import \
+    sharded_global_threshold
 from archive_pdf_tools_tpu_torch.utils.backend import (pack_mask_bits,
                                                        unpack_mask_bits)
 
@@ -218,7 +220,7 @@ def test_blur_sauvola_jax_taps_matches_xla_form(h, w, noise):
     taps, sigma = JD.blur_weights(imgs)
     assert float(np.min(sigma)) > 1.0          # real (non-identity) taps
     ttaps, window = TD.from_jax_state(np.array(taps), 31, 'cpu')
-    got, _ = TD.global_mask(_t(imgs), window, taps=ttaps)
+    (got,) = sharded_global_threshold([_t(imgs)], window, taps=[ttaps])
     blurred, _ = JD.global_threshold_input(imgs)
     ref = np.asarray(JD.global_threshold(blurred, 31))
     assert (got.numpy() == ref).mean() >= 0.9999
