@@ -2,12 +2,14 @@
 
 The port imports nothing of ``archive_pdf_tools_tpu``: every module of it
 that the port needs (PDF reading and writing, the host codecs, the
-validators, the CLI's text-layer extraction) is kept here as a copy at
-the same relative path under ``archive_pdf_tools_tpu_torch/``, so that
-its relative imports resolve inside the port.  Each copy starts with a
-comment naming its source and this script; the few edits are exact
-substitutions listed below, each of which must match exactly once.
-The files are read as text; nothing of the JAX package is imported.
+validators, the CLIs' text-layer extraction, the EPUB/XPS converter and
+its font embedding) is kept here as a copy at the same relative path
+under ``archive_pdf_tools_tpu_torch/``, so that its relative imports
+resolve inside the port.  Each copy starts with a comment naming its
+source and this script; the few edits are exact substitutions listed
+below, each of which must match exactly once.  A copy that imports lxml
+gets the port's ``utils/etree_compat.py`` in its place.  The files are
+read as text; nothing of the JAX package is imported.
 
     python -m archive_pdf_tools_tpu_torch.tools.copy_shared          # write
     python -m archive_pdf_tools_tpu_torch.tools.copy_shared --check  # diff
@@ -120,6 +122,14 @@ COPIES = {
                             "              '--device', args.device]\n")]),
     'cli/pdf_to_imagestack.py': ('cli/pdf_to_imagestack.py', None, []),
     'cli/pdfrenderer_cli.py': ('cli/pdfrenderer_cli.py', None, []),
+    'pdf/embedfont.py': ('pdf/embedfont.py', None, []),
+    'cli/epub_to_pdf.py': ('cli/epub_to_pdf.py', "lxml is the port's "
+                           "utils/etree_compat.py; a comment names no machine "
+                           "path", [
+                               ('from lxml import etree\n',
+                                'from ..utils import etree_compat as etree\n'),
+                               ('(/root/reference/bin/epub-to-pdf:52-60)',
+                                "(the reference's bin/epub-to-pdf:52-60)")]),
     'validators/__init__.py': ('validators/__init__.py', None, []),
     'validators/jbig2_check.py': ('validators/jbig2_check.py', None, []),
     'validators/jp2_check.py': ('validators/jp2_check.py', None, []),

@@ -89,7 +89,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    K2), partial_blur (K1) and compress (K1 twice) on one full-size RGB
    page give the bytes of their ``--device cpu`` runs; mrcview,
    pdfimagesmrc, pdf-to-imagestack_torch and pdfrenderer_torch run on
-   phase 3b's small book (its card PDF and hOCR) and exit 0.
+   phase 3b's small book (its card PDF and hOCR) and exit 0.  (3f)
+   epub-to-pdf_torch, which does no device work, on the cases of
+   ``tests/test_torch_epub.py`` (a reflowable book with styles, lists,
+   a table, images, a nav TOC and links; comments, processing
+   instructions and entities in styled runs and list items; chapters
+   that take the HTML parser; a fixed-layout book; an XPS with an
+   obfuscated font): each PDF must carry the sha256 pinned there for the
+   JAX converter's output, with or without matplotlib and fontTools as
+   this machine has them; the port's own tree builder stands in for
+   lxml.
 
 The script's wall time, the card's name and power limit and the
 kernels' JSON summary come before the last line (``library_ms`` is null
@@ -1528,6 +1537,40 @@ def phase_split_and_tools(tmp, page):
                              % (name, r.returncode, r.stderr[-500:]))
 
 
+def phase_epub(tmp):
+    """3f: epub-to-pdf_torch on tests/test_torch_epub.py's cases, each
+    PDF held to the JAX converter's pinned sha256."""
+    import importlib.util
+    te = _tests_module('test_torch_epub')
+    env = te.environment()
+    have = ', '.join('%s %s' % (m, 'present' if importlib.util.find_spec(m)
+                                else 'absent')
+                     for m in ('lxml', 'matplotlib', 'fontTools'))
+    print('phase 3f: epub-to-pdf_torch on %d cases (%s; pins: %s)'
+          % (len(te.CASES), have, env))
+    if env is None:
+        raise SystemExit('FAIL: no pin for matplotlib without fontTools or '
+                         'the reverse')
+    t0 = time.time()
+    for case in sorted(te.CASES):
+        src = te.make_case(case, tmp)
+        out = os.path.join(tmp, 'epub_%s.pdf' % case)
+        r = subprocess.run([sys.executable, os.path.join(
+            ROOT, 'bin', 'epub-to-pdf_torch'), src, out],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        if r.returncode != 0:
+            raise SystemExit('FAIL: epub-to-pdf_torch on %s exited %d: %s'
+                             % (case, r.returncode, r.stderr[-500:]))
+        got, want = te.sha256_of(out), te.JAX_SHA256[case][env]
+        print('  %-9s %s %s; %s' % (case, got, '== the JAX pin' if got ==
+                                    want else '!= the JAX pin ' + want,
+                                    r.stdout.strip().splitlines()[-1]))
+        if got != want:
+            raise SystemExit('FAIL: epub-to-pdf_torch on %s differs from '
+                             'the JAX converter' % case)
+    print('  phase 3f: %.3f s of wall time' % (time.time() - t0))
+
+
 def phase_cards(pages, wds):
     """``--cards``: recode_pdf_torch -J tpu on the book with no
     --device, so a batch splits over every visible card, against
@@ -1653,6 +1696,7 @@ def main():
         t0 = time.time()
         phase_split_and_tools(tmp, pages[N_PAGES - 1])
         t_step += time.time() - t0
+        phase_epub(tmp)
     refs.shutdown()
     tmp_ref.cleanup()
     print('phases 2d and 3d: %.1f s of wall time (their CPU references ran '

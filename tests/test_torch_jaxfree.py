@@ -2,8 +2,8 @@
 the JAX package (``archive_pdf_tools_tpu``), and its main path (hOCR
 lines, layer downsampling, scandata, --from-pdf and -J tpu included)
 needs no lxml (GPU machines may not ship it), nor do the off-path
-options, the compress-pdf-images, pdfcomp, pdf-to-imagestack and
-pdfrenderer tools and the debug tools.  The runs below
+options, the compress-pdf-images, pdfcomp, pdf-to-imagestack,
+pdfrenderer and epub-to-pdf tools and the debug tools.  The runs below
 block all three imports, with ``APT_PLATFORM=cpu`` set as the JAX
 package's tools set it."""
 
@@ -48,7 +48,8 @@ for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize',
              'parallel.multihost', 'ops.filters', 'tools.threshold_image',
              'tools.partial_blur', 'tools.compress', 'tools.mrcview',
              'tools.pdfimagesmrc', 'cli.pdf_to_imagestack',
-             'cli.pdfrenderer_cli'):
+             'cli.pdfrenderer_cli', 'utils.etree_compat', 'pdf.embedfont',
+             'cli.epub_to_pdf'):
     assert pkg.__name__ + '.' + name in names, name
 ''' + _NO_JAX_PKG + r'''
 print(len(names), sys.modules['jax'] is not None)
@@ -322,6 +323,20 @@ def test_new_clis_and_tools_run_without_jax_and_lxml(tmp_path):
     assert 'ink fraction' in out
 
 
+def test_epub_to_pdf_runs_without_jax_and_lxml(tmp_path):
+    """epub-to-pdf_torch on an EPUB whose chapters take the HTML parser
+    and on an XPS with an embedded font: the JAX converter's bytes, with
+    the port's own tree builder in place of lxml."""
+    sys.path.insert(0, ROOT)
+    from tests.test_torch_epub import JAX_SHA256, make_case, sha256_of
+    for case in ('malformed', 'xps_font'):
+        src = make_case(case, tmp_path)
+        out = tmp_path / (case + '.pdf')
+        _run_blocked([os.path.join(ROOT, 'bin', 'epub-to-pdf_torch'), src,
+                      out])
+        assert sha256_of(out) == JAX_SHA256[case]['full']
+
+
 def test_scandata_and_from_pdf_run_without_jax_and_lxml(tmp_path):
     code = _FROM_PDF_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
                                      'tests': os.path.join(ROOT, 'tests')}
@@ -358,7 +373,7 @@ def test_pyproject_names_every_entry_point_of_the_port():
     ours = {k: v for k, v in scripts.items() if v.startswith(PORT + '.')}
     assert set(ours) == {'recode_pdf_torch', 'compress-pdf-images_torch',
                          'pdfcomp_torch', 'pdf-to-imagestack_torch',
-                         'pdfrenderer_torch'}
+                         'pdfrenderer_torch', 'epub-to-pdf_torch'}
     sys.path.insert(0, ROOT)
     for name, target in ours.items():
         module, func = target.split(':')
