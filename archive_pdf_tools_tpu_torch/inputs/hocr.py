@@ -1,34 +1,41 @@
-"""Streaming hOCR reader on the standard library's ElementTree.
+# Copied from archive_pdf_tools_tpu/inputs/hocr.py by
+# archive_pdf_tools_tpu_torch/tools/copy_shared.py; edit: lxml is the port's utils/etree_compat.py.
+"""Streaming hOCR parser.
 
-Same functions and the same word-data structure as the JAX package's
-``inputs/hocr.py``, which is built on lxml; the GPU machines the port
-targets do not ship lxml, so the port reads hOCR with
-``xml.etree.ElementTree.iterparse`` instead.  Pages stream in O(page)
-memory: each ``ocr_page`` element is cleared and detached after it has
-been yielded.  Unlike lxml's ``recover=True`` mode, malformed XML
-raises ``xml.etree.ElementTree.ParseError``.
+Self-contained replacement for the subset of `archive-hocr-tools`
+(``hocr.parse``) that the reference imports (``recode.py:37-38``,
+``pdfrenderer.py:22-25``): a constant-memory page iterator plus
+word-data extraction into the paragraph/line/word dict structure the
+renderer and MRC mask generator consume.
+
+Built on lxml.etree.iterparse with element clearing, so arbitrarily
+large hOCR files stream in O(page) memory.
 """
 
-import xml.etree.ElementTree as ET
+import io
+
+from ..utils import etree_compat as etree
 
 WRITING_DIRECTION_UNSPECIFIED = 0
 WRITING_DIRECTION_LEFT_TO_RIGHT = 1
 WRITING_DIRECTION_RIGHT_TO_LEFT = 2
+WRITING_DIRECTION_TOP_TO_BOTTOM = 3
 
-_PARA_CLASSES = ('ocr_par',)
-_LINE_CLASSES = ('ocr_line', 'ocr_header', 'ocr_textfloat', 'ocr_caption')
-_WORD_CLASSES = ('ocrx_word',)
+_XHTML = '{http://www.w3.org/1999/xhtml}'
 
 
 def _title_props(elem):
     """Parse an hOCR ``title`` attribute into {prop: [values...]}."""
     props = {}
-    for part in (elem.get('title') or '').split(';'):
+    title = elem.get('title') or ''
+    for part in title.split(';'):
         part = part.strip()
         if not part:
             continue
         fields = part.split(' ')
-        props[fields[0]] = [f.strip('"') for f in fields[1:] if f]
+        key = fields[0]
+        vals = [f.strip('"') for f in fields[1:] if f]
+        props[key] = vals
     return props
 
 
@@ -38,28 +45,29 @@ def _ocr_class(elem):
 
 def hocr_page_iterator(fp_or_path):
     """Yield ocr_page elements one at a time, freeing parsed subtrees."""
-    own = isinstance(fp_or_path, (str, bytes))
-    source = open(fp_or_path, 'rb') if own else fp_or_path
-    try:
-        stack = []
-        for event, elem in ET.iterparse(source, events=('start', 'end')):
-            if event == 'start':
-                stack.append(elem)
-                continue
-            stack.pop()
-            if elem.tag.endswith('div') and _ocr_class(elem) == 'ocr_page':
-                yield elem
-                elem.clear()
-                if stack:
-                    stack[-1].remove(elem)
-    finally:
-        if own:
-            source.close()
+    if isinstance(fp_or_path, (str, bytes)):
+        source = open(fp_or_path, 'rb')
+    else:
+        source = fp_or_path
+    ctx = etree.iterparse(source, events=('end',), html=False,
+                          recover=True, huge_tree=True)
+    for _, elem in ctx:
+        tag = elem.tag
+        if isinstance(tag, str) and tag.endswith('div') \
+                and _ocr_class(elem) == 'ocr_page':
+            yield elem
+            # free memory: clear element and preceding siblings
+            elem.clear()
+            parent = elem.getparent()
+            if parent is not None:
+                while elem.getprevious() is not None:
+                    del parent[0]
 
 
 def hocr_page_get_dimensions(page):
     """(width, height) from the page bbox."""
-    bbox = _title_props(page).get('bbox')
+    props = _title_props(page)
+    bbox = props.get('bbox')
     if bbox and len(bbox) == 4:
         return int(float(bbox[2])), int(float(bbox[3]))
     return None, None
@@ -67,7 +75,8 @@ def hocr_page_get_dimensions(page):
 
 def hocr_page_get_scan_res(page):
     """(x_res, y_res) from the page ``scan_res`` property, else (None, None)."""
-    res = _title_props(page).get('scan_res')
+    props = _title_props(page)
+    res = props.get('scan_res')
     if res and len(res) >= 2:
         try:
             return int(float(res[0])), int(float(res[1]))
@@ -77,23 +86,22 @@ def hocr_page_get_scan_res(page):
 
 
 def _bbox_of(elem):
-    bbox = _title_props(elem).get('bbox')
+    props = _title_props(elem)
+    bbox = props.get('bbox')
     if bbox and len(bbox) == 4:
         return [float(v) for v in bbox]
     return None
 
 
+_PARA_CLASSES = ('ocr_par',)
+_LINE_CLASSES = ('ocr_line', 'ocr_header', 'ocr_textfloat', 'ocr_caption')
+_WORD_CLASSES = ('ocrx_word',)
+
+
 def _iter_class(root, classes):
     for elem in root.iter():
-        if _ocr_class(elem) in classes:
+        if isinstance(elem.tag, str) and _ocr_class(elem) in classes:
             yield elem
-
-
-def _float_prop(props, key):
-    try:
-        return float(props[key][0])
-    except (KeyError, IndexError, ValueError):
-        return None
 
 
 def hocr_page_to_word_data(page, scaler=1):
@@ -101,7 +109,8 @@ def hocr_page_to_word_data(page, scaler=1):
 
     Word fields: text, bbox, fontsize (x_fsize or line x_size, scaled),
     confidence (x_wconf, default 100), writing_direction (paragraph
-    ``dir`` attribute)."""
+    ``dir`` attribute).
+    """
     paragraphs = []
     for par in _iter_class(page, _PARA_CLASSES):
         direction = {'ltr': WRITING_DIRECTION_LEFT_TO_RIGHT,
@@ -115,32 +124,48 @@ def hocr_page_to_word_data(page, scaler=1):
             if bbox is None:
                 continue
             baseline = (0.0, 0.0)
-            if len(lprops.get('baseline', ())) >= 2:
+            if 'baseline' in lprops and len(lprops['baseline']) >= 2:
                 try:
                     baseline = (float(lprops['baseline'][0]),
                                 float(lprops['baseline'][1]))
                 except ValueError:
                     pass
-            x_size = _float_prop(lprops, 'x_size')
+            x_size = None
+            if 'x_size' in lprops:
+                try:
+                    x_size = float(lprops['x_size'][0])
+                except ValueError:
+                    pass
+
             words = []
             for word in _iter_class(line, _WORD_CLASSES):
                 wprops = _title_props(word)
                 wbbox = _bbox_of(word)
                 if wbbox is None:
                     continue
-                conf = _float_prop(wprops, 'x_wconf')
+                text = ''.join(word.itertext())
+                conf = 100
+                if 'x_wconf' in wprops:
+                    try:
+                        conf = int(float(wprops['x_wconf'][0]))
+                    except ValueError:
+                        pass
                 fsize = 0
                 if 'x_fsize' in wprops:
-                    v = _float_prop(wprops, 'x_fsize')
-                    if v is not None:
-                        fsize = v
+                    try:
+                        fsize = float(wprops['x_fsize'][0])
+                    except ValueError:
+                        pass
                 elif x_size is not None:
                     fsize = x_size
                 words.append({
-                    'text': ''.join(word.itertext()),
+                    'text': text,
                     'bbox': wbbox,
+                    # archive-hocr-tools carries the scaled size as a
+                    # float (the renderer accepts fractional Tf sizes,
+                    # reference pdfrenderer.py:166-177); do not truncate.
                     'fontsize': fsize * scaler,
-                    'confidence': 100 if conf is None else int(conf),
+                    'confidence': conf,
                     'writing_direction': direction,
                 })
             if words:
@@ -150,3 +175,9 @@ def hocr_page_to_word_data(page, scaler=1):
             paragraphs.append({'lines': lines})
     return paragraphs
 
+
+def hocr_from_string(data):
+    """Convenience: iterate pages of an in-memory hOCR document."""
+    if isinstance(data, str):
+        data = data.encode('utf-8')
+    return hocr_page_iterator(io.BytesIO(data))

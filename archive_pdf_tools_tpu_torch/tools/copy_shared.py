@@ -130,6 +130,14 @@ COPIES = {
                                 'from ..utils import etree_compat as etree\n'),
                                ('(/root/reference/bin/epub-to-pdf:52-60)',
                                 "(the reference's bin/epub-to-pdf:52-60)")]),
+    'inputs/hocr.py': ('inputs/hocr.py', "lxml is the port's "
+                       'utils/etree_compat.py', [
+                           ('from lxml import etree\n',
+                            'from ..utils import etree_compat as etree\n')]),
+    'inputs/scandata.py': ('inputs/scandata.py', "lxml is the port's "
+                           'utils/etree_compat.py', [
+                               ('from lxml import etree\n',
+                                'from ..utils import etree_compat as etree\n')]),
     'validators/__init__.py': ('validators/__init__.py', None, []),
     'validators/jbig2_check.py': ('validators/jbig2_check.py', None, []),
     'validators/jp2_check.py': ('validators/jp2_check.py', None, []),

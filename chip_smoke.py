@@ -98,7 +98,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    obfuscated font): each PDF must carry the sha256 pinned there for the
    JAX converter's output, with or without matplotlib and fontTools as
    this machine has them; the port's own tree builder stands in for
-   lxml.
+   lxml.  (3g) hOCR that is not well-formed, read with no lxml: the rows
+   of ROADMAP C16 and 200 seeded mutated documents
+   (``tests/hocr_cases.py``) must give the JAX reader's pinned page data;
+   phase 3b's book with four C16 faults in its hOCR (an undefined
+   ``&nbsp;``, a bare '&', an unclosed ``<meta>``, the file cut inside its
+   last page) through ``recode_pdf_torch --hocr-file`` on the card and
+   with ``--device cpu`` must give equal bytes, launch K1-K5 and hold the
+   pinned words in its text layer; then the reader's time on phase 3's
+   book hOCR and on a generated 500-page one beside stdlib
+   ``ElementTree.iterparse`` over the same bytes.
 
 The script's wall time, the card's name and power limit and the
 kernels' JSON summary come before the last line (``library_ms`` is null
@@ -1571,6 +1580,124 @@ def phase_epub(tmp):
     print('  phase 3f: %.3f s of wall time' % (time.time() - t0))
 
 
+def _reader_times(path, reps=3):
+    """Medians of ``reps`` alternating reads of the hOCR at ``path``:
+    the port's ``hocr_page_iterator`` (each page yielded, cleared and
+    its earlier siblings dropped), and stdlib ``ElementTree.iterparse``
+    over the same bytes with the same page test and clearing (a
+    yardstick, not a code path)."""
+    import xml.etree.ElementTree as ET
+    from archive_pdf_tools_tpu_torch.inputs import hocr
+
+    def port():
+        return sum(1 for _ in hocr.hocr_page_iterator(path))
+
+    def stdlib():
+        n = 0
+        for _, el in ET.iterparse(path, events=('end',)):
+            if el.tag.endswith('div') and \
+                    (el.get('class') or '').strip() == 'ocr_page':
+                n += 1
+                el.clear()
+        return n
+    times = {'port': [], 'stdlib': []}
+    pages = set()
+    for _ in range(reps):
+        for name, fn in (('stdlib', stdlib), ('port', port)):
+            t0 = time.perf_counter()
+            pages.add(fn())
+            times[name].append(time.perf_counter() - t0)
+    if len(pages) != 1:
+        raise SystemExit('FAIL: the readers count different pages: %s'
+                         % sorted(pages))
+    return pages.pop(), {k: float(np.median(v)) for k, v in times.items()}
+
+
+def phase_hocr(tmp, smi):
+    """3g: hOCR that is not well-formed, read by the port's reader (a
+    copy of the JAX one over ``utils/etree_compat.py``) on a machine
+    without lxml: (a) ROADMAP C16's rows and the seeded mutated
+    documents of ``tests/hocr_cases.py`` against the JAX reader's pins;
+    (b) phase 3b's book with four C16 faults in its hOCR through
+    recode_pdf_torch --hocr-file, card == CPU bytes, K1-K5 launched, the
+    pinned words in its text layer; (c) the reader's time on phase 3's
+    book hOCR and a generated 500-page one beside stdlib iterparse."""
+    import importlib.util
+    import io
+    from archive_pdf_tools_tpu_torch.inputs import hocr
+    from archive_pdf_tools_tpu_torch.pdf.textextract import pdf_to_hocr
+    hc = _tests_module('hocr_cases')
+    fx = hc._fixtures()
+    t0 = time.time()
+    docs = dict(hc.CASES)
+    docs.update(('mutated_%03d' % k, hc.mutated(k))
+                for k in range(hc.N_MUTATED))
+    for name, data in docs.items():
+        pages = hc.read(hocr, data)
+        if hc.digest(pages) != hc.PINS[name]:
+            raise SystemExit('FAIL: the hOCR reader differs from the JAX '
+                             'reader on %s: %r' % (name, pages))
+        if name in hc.PIN_WORDS and hc.words(pages) != hc.PIN_WORDS[name]:
+            raise SystemExit('FAIL: the words of %s differ' % name)
+    print('phase 3g: %d C16 rows and %d mutated hOCR documents read as the '
+          'JAX reader (its pins; lxml %s here)' % (
+              len(hc.CASES), hc.N_MUTATED, 'present' if
+              importlib.util.find_spec('lxml') else 'absent'))
+
+    # (b) the small book, its hOCR with four C16 faults
+    words = [fx.render_book_page(320, 416, seed=i, rgb=i == 1, noise=0)[1]
+             for i in range(3)]
+    hocr_path = os.path.join(tmp, 'c16.hocr')
+    with open(hocr_path, 'wb') as fp:
+        fp.write(hc.book_hocr(words))
+    stack = os.path.join(tmp, 'small_*.png')
+    insize = sum(os.path.getsize(p) for p in glob.glob(stack))
+    args = ['--from-imagestack', stack, '--hocr-file', hocr_path, '--dpi',
+            '100']
+    print('phase 3g: recode_pdf_torch --hocr-file on the 3-page small book, '
+          'its hOCR with an undefined &nbsp;, a bare &, an unclosed <meta> '
+          'and the file cut inside page 2')
+    card = os.path.join(tmp, 'c16_card.pdf')
+    _run_cli(args, card, insize, 3, dict(blur_sauvola=1, despeckle=1,
+                                         optimise=2, line_sauvola=1,
+                                         paste=1))
+    cpu = os.path.join(tmp, 'c16_cpu.pdf')
+    _run_cli(args, cpu, insize, 3, {}, device='cpu')
+    with open(card, 'rb') as a, open(cpu, 'rb') as b:
+        if a.read() != b.read():
+            raise SystemExit('FAIL: card and CPU recode of the C16 book '
+                             'differ')
+    buf = io.BytesIO()
+    pdf_to_hocr(card, buf)
+    got = hc.words(hc.read(hocr, buf.getvalue()))
+    if got != hc.PIN_WORDS['book']:
+        raise SystemExit('FAIL: the text layer of the C16 book holds %r, '
+                         'not the pinned words' % got)
+    print('  card == CPU bytes; the text layer holds the JAX reader\'s '
+          '%d words' % sum(map(len, got)))
+
+    # (c) the reader's time on well-formed hOCR
+    big = os.path.join(tmp, 'generated500.hocr')
+    with open(big, 'w', encoding='utf-8') as fp:
+        head, tail = fx.HOCR_TEMPLATE.split('%s')
+        fp.write(head)
+        for i in range(500):
+            fp.write(fx.words_to_hocr_page(
+                [(10 + 60 * w, 40 + 60 * ln, 50 + 60 * w, 80 + 60 * ln,
+                  'word%d' % w) for ln in range(50) for w in range(8)],
+                W, H, page_no=i, dpi=DPI) + '\n')
+        fp.write(tail)
+    print('phase 3g: hOCR reader vs stdlib ElementTree.iterparse (a '
+          'yardstick), medians of 3, host clock, %s' % smi.strip())
+    for path in (os.path.join(tmp, 'book.hocr'), big):
+        n, t = _reader_times(path)
+        print('  %s: %d pages, %.1f MB: port %.4f s, stdlib %.4f s, '
+              'ratio %.3f' % (os.path.basename(path), n,
+                              os.path.getsize(path) / 1e6, t['port'],
+                              t['stdlib'], t['port'] / t['stdlib']))
+    print('  phase 3g: %.3f s of wall time' % (time.time() - t0))
+
+
 def phase_cards(pages, wds):
     """``--cards``: recode_pdf_torch -J tpu on the book with no
     --device, so a batch splits over every visible card, against
@@ -1697,6 +1824,7 @@ def main():
         phase_split_and_tools(tmp, pages[N_PAGES - 1])
         t_step += time.time() - t0
         phase_epub(tmp)
+        phase_hocr(tmp, smi)
     refs.shutdown()
     tmp_ref.cleanup()
     print('phases 2d and 3d: %.1f s of wall time (their CPU references ran '

@@ -17,13 +17,19 @@ These tests need lxml, which the JAX package needs too; nothing here
 runs torch.
 """
 
+import io
+import os
 import random
+import sys
 
 import pytest
 
 lxml_etree = pytest.importorskip('lxml.etree')
 
 from archive_pdf_tools_tpu_torch.utils import etree_compat  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import hocr_cases  # noqa: E402
 
 
 def _dump(root, mod):
@@ -255,6 +261,22 @@ def _tag_soup(rng):
 
 
 def _xml_doc(rng):
+    doc = bytearray(_xml_clean(rng))
+    for _ in range(rng.choice((0, 0, 1, 2))):
+        j = rng.randrange(len(doc))
+        op = rng.random()
+        if op < 0.4:
+            del doc[j]
+        elif op < 0.8:
+            doc[j:j] = rng.choice([b'<', b'&', b'>', b'"', b'/', b'a', b' '])
+        else:
+            doc[j] = rng.randrange(256)
+    return bytes(doc)
+
+
+def _xml_clean(rng):
+    """A well-formed document: namespaces, an internal DTD's entity,
+    CDATA, comments, PIs, references."""
     names = ['r', 'p', 'e:a', 'b', 'x:y']
     text = ['a', ' ', '\n', '&amp;', '&#x263a;', '<!-- c -->', '<?pi d?>',
             '<![CDATA[<q>]]>', '&nbsp;', '\r\n', '\xe9', '&e;']
@@ -270,22 +292,10 @@ def _xml_doc(rng):
                         else elem(depth + 1)
                         for _ in range(rng.randint(0, 4)))
         return '<%s%s>%s</%s>' % (name, attrs, inner, name)
-    doc = bytearray((rng.choice(['', '<?xml version="1.0"?>',
-                                 '<!DOCTYPE r [<!ENTITY e "E">]>',
-                                 '<!-- pre -->'])
-                     + '<r xmlns:e="v" xmlns:x="y">' + elem(0) + '</r>'
-                     + rng.choice(['', '\n', '<!-- post -->'])
-                     ).encode('utf-8'))
-    for _ in range(rng.choice((0, 0, 1, 2))):
-        j = rng.randrange(len(doc))
-        op = rng.random()
-        if op < 0.4:
-            del doc[j]
-        elif op < 0.8:
-            doc[j:j] = rng.choice([b'<', b'&', b'>', b'"', b'/', b'a', b' '])
-        else:
-            doc[j] = rng.randrange(256)
-    return bytes(doc)
+    return (rng.choice(['', '<?xml version="1.0"?>',
+                        '<!DOCTYPE r [<!ENTITY e "E">]>', '<!-- pre -->'])
+            + '<r xmlns:e="v" xmlns:x="y">' + elem(0) + '</r>'
+            + rng.choice(['', '\n', '<!-- post -->'])).encode('utf-8')
 
 
 @pytest.mark.parametrize('seed', range(4))
@@ -362,3 +372,353 @@ def test_end_tag_priorities_are_libxml2s():
             closed = el.text == 'b'
             assert closed == (prio.get(inner, 100) <= prio.get(outer, 100)), \
                 (outer, inner)
+
+
+# --- iterparse: libxml2's recovery, as inputs/hocr.py reads hOCR -----------
+
+# small documents, each on one rule of _Recover (read off lxml): stray
+# '<' and '&', references, attributes, end tags, bytes that are not
+# UTF-8, comments, PIs and CDATA, the epilog, the end of the input, the
+# entities that an error stops, and the last bytes of a cut file
+RECOVERY_CASES = [
+    b'<r><a>Hi&nbsp;there <b>x</b></a></r>',
+    b'<r><a>A&B next<b>n</b></a></r>',
+    b'<r><a><head><meta charset="utf-8"></head><b>x</b></a></r>',
+    b'<r><a>x < y</a><b/></r>',
+    b'<r><a>x<1</a><b/></r>',
+    b'<r><a>x<>y</a><b/></r>',
+    b'<r><a>x<</a></r>',
+    b'<r><a>x<',
+    b'<r>&</r>',
+    b'<r>a& b</r>',
+    b'<r>a&;b</r>',
+    b'<r>a&#;b</r>',
+    b'<r>a&#x;b</r>',
+    b'<r>a&#65 b</r>',
+    b'<r>a&#0;b</r>',
+    b'<r>a&lt b</r>',
+    b'<r>a&ab',
+    b'<r>a&#1114112;b</r>',
+    b'<r>a&lt;&gt;&amp;&quot;&apos;b</r>',
+    b'<r><a>x &amp; <c>y</c>&</a><b/>zz</r>',
+    b'<r><q><a>x < y</a><b/></q></r>',
+    b'<r>a &#x41;&#65;</r>',
+    b'<r>a&#x4g1;b<c/></r>',
+    b'<r><a b>x</a><c/></r>',
+    b'<r><a b=>x</a><c/></r>',
+    b'<r><a b="x>y</a><c/>z"></r>',
+    b'<r><a b="x<y">q</a><c/></r>',
+    b'<r><a b=x>q</a><c/></r>',
+    b'<r><a "b">q</a><c/></r>',
+    b'<r><a b="1"c="2">q</a><c/></r>',
+    b'<r><a/ >q</a><c/></r>',
+    b'<r><a b="1" b="2">q</a><c/></r>',
+    b'<r><a b="1" >q</a  x><c/></r>',
+    b'<r><a>q</ a><c/></r>',
+    b'<r><a>q</><c/></r>',
+    b'<r><a>q</a',
+    b'<r><a',
+    b'<r><a b="',
+    b'<r><a b="1"',
+    b'<r><a>q</b><c/></r>',
+    b'<r><a>q</aa><c/></r>',
+    b'<r><aa>q</a><c/></r>',
+    b'<r><a>o\xffk caf\xc3\xa9 \xc3(x \xe2\x82y</a><c/></r>',
+    b'<r><a\xff>q</a><c/></r>',
+    b'<r><a b\xff="1">q</a><c/></r>',
+    b'<r><a b="1\xff2">q</a><c/></r>',
+    b'<r><a>q</a\xff><c/></r>',
+    b'<r><a>q&a\xffb;</a><c/></r>',
+    b'<r><\xffa>q</a><c/></r>',
+    b'<r><a b="x&amp;y&z; &q &#65;&#;w">q</a><c/></r>',
+    b'<r><a b="x&y">q</a><c/></r>',
+    b'<r><a b="x& y">q</a><c/></r>',
+    b'<r><a b c="1">q</a><c/></r>',
+    b'<r><a b="1\n2\t3">q</a><c/></r>',
+    b'<r><a b="x&">q</a><c/></r>',
+    b'<r><a b="x&y;">q</a><c/></r>',
+    b'<r><a b="1" \xff>q</a><c/></r>',
+    b'<r><a>x<!-- c -->y<?pi data?>z<![CDATA[<&>]]>w</a><c/></r>',
+    b'<r><a>x<!-- c -- d -->y</a><c/></r>',
+    b'<r><a>x<!-- c </a><c/></r>',
+    b'<r><a>x<?pi </a><c/></r>',
+    b'<r><a>x<![CDATA[ c </a><c/></r>',
+    b'<r><a>x<!x>y</a><c/></r>',
+    b'<r><a>q</a></r>\n<!-- c -->\n<x/>',
+    b'<r><a>q</a></r></r>',
+    b'<r><a>q</a></r>text',
+    b'<r><a>q</a></r><?p x?>  ',
+    b'<r><a>x<?xml version="1.0"?>y</a></r>',
+    b'<r><a>x\x01y</a><c/></r>',
+    b'<r><a b="x\x01y">q</a><c/></r>',
+    b'<r><a\x01>q</a><c/></r>',
+    b'',
+    b'  \n',
+    b'<?xml version="1.0"?>\n',
+    b'junk',
+    b'<r><a>q</',
+    b'<r><a>q<?',
+    b'<r><a>x<? y?>z</a><c/></r>',
+    b'<r><a>x<?1y?>z</a><c/></r>',
+    b'<r><a>x<?py?>z<?p\ty?></a><c/></r>',
+    b'<r><a>x<!-->z--></a><c/></r>',
+    b'<r><a>x<!--->z--></a><c/></r>',
+    b'<r><a>x<!--a\xffb-->z</a><c/></r>',
+    b'<r><a>a\r\nb\rc</a><c b="1\r\n2"/></r>',
+    b'<?xml version="1.0"?><!-- x --><r><a>q</a></r>',
+    b'<r><a>&#65</a></r>',
+    b'<r>\xff&amp;</r>',
+    b'<r><a b="1" b="2"/>&amp;</r>',
+    b'<r><a b=x/>&amp;</r>',
+    b'<r><!-- a -- b -->&amp;</r>',
+    b'<r xmlns:a="u"><b:c/>&amp;</r>',
+    b'<r>\x01&amp;</r>',
+    b'<r><?xml x?>&amp;</r>',
+    b'<!DOCTYPE r [<!ENTITY e "E&#65;">]><r>&e;<x/>&nbsp;&e;&amp;'
+    b'<y a="&e;"/></r>',
+    b'<r><a>&#0;&amp;</a></r>',
+    b'<r xmlns="">&amp;</r>',
+    b'<!DOCTYPE r PUBLIC "-//W3C//DTD XHTML 1.0 Transitional//EN" "x.dtd">'
+    b'<r>x&nbsp;y&amp;z<a b="&amp;&nbsp;q">&lt;</a></r>',
+    b'<r>x&nbsp;y&amp;z<a b="&amp;&lt;q">&lt;&#65;</a></r>',
+    b'<r>x&lt;<a b="&amp;"/>&gt;<b>&amp;&#65;</b>&nbsp;<c b="&amp;&lt;"/>'
+    b'&amp;</r>',
+    b'<r>caf\xc3',
+    b'<r>a\xe2\x82',
+    b'<r>a\xff',
+    b'<r>a\xf0\x9f\x98',
+    b'<r>a\xc3<b/>',
+    b'<r b="a\xc3',
+    b'<r>a\xe2\x82b</r>',
+    b'<r>a\xed\xa0\x80b</r>',
+    b'<r>a\xf4\x90\x80\x80b</r>',
+    b'<r>a\xc0\xafb</r>',
+    b'<r>ok</r>\xff',
+    b'<r>ab]]>cd</r>', b'<r>a]]>b]]>c</r>', b'<r>ab<x/>cd]]>ef&amp;g</r>',
+    b'<r>\xc3\xa9a]]>b</r>', b'<r>a\r\nb]]>c</r>', b'<r>a\rb]]>c</r>',
+    b'<r>a\x01b]]>c</r>', b'<r>\xc3\xa9\x01b]]>c</r>',
+    # before the root element: the XML declaration, a DOCTYPE (a second
+    # one stops the parser), comments, PIs, a byte order mark
+    b'<?xml version="1.0"?>\n<!-- c -->\n<r a="1"b="2">x</r>',
+    b'<!DOCTYPE r SYSTEM "r.dtd">\n<r a="1"b="2">x&nbsp;<s/></r>',
+    b'<?xml version="1.0"?>\n<r&>x</r>', b'\n\n<r b="1\xff">x</r>',
+    b'junk<r>x</r>', b'<?pi x?><r a=1>x</r>', b'<!-- a -- b --><r>x</r>',
+    b'<!DOCTYPE r [<!ENTITY e "E">]><r a="&e;"b="2">&e;x</r>',
+    b'<!DOCTYPE r SYSTEM "r.dtd"><!DOCTYPE r><r>x</r>', b'<r/><r/>',
+    b'\xef\xbb\xbf<r a="1"b>x</r>',
+    b'<?xml version="1.0"?><!DOCTYPE r SYSTEM "r.dtd"><r a="1"b>&amp;'
+    b'&nbsp;&amp;x</r>',
+]
+
+
+# where expat's half hands over to the recovering one
+_LONG = 'x' * 50000
+BOUNDARY_CASES = {
+    'in_a_tag': b'<r><a b="1" c="2"d="3">x</a><b>y&amp;</b></r>',
+    'in_a_long_text_run': ('<r><a>%s&nbsp;%s&amp;</a><b/></r>'
+                           % (_LONG, _LONG)).encode(),
+    'in_a_tag_after_a_long_text_run': ('<r><a>%s<b c="1"d="2">y</b>'
+                                       '&amp;</a></r>' % _LONG).encode(),
+    'cr_lf_across_a_read': ('<r><a>%s\r\n&nbsp;y</a></r>'
+                            % ('x' * (32768 - 7))).encode(),
+    'at_a_read_boundary': ('<r><a>%s&nbsp;y<b/></a></r>'
+                           % ('x' * (32768 - 6))).encode(),
+    'after_namespace_declarations': b'<r xmlns="u:d" xmlns:p="u:p"><p:a '
+                                    b'p:k="v">x&nbsp;<b/></p:a><c xmlns="u:c'
+                                    b'">y<d p:q="1"/>&z;</c><p:e/></r>',
+    'after_a_default_namespace_on_an_inner_element':
+        b'<r><a xmlns="u:a"><b>x</b>&q;<c/></a><d/></r>',
+    'in_an_attribute_value': b'<r><a title="bbox 1 2&3">x</a><b t="a<b"/>'
+                             b'<c t="x&nbsp;y"/>&amp;</r>',
+    'after_an_empty_element_tag': b'<r><a/>&x;<c/></r>',
+    'after_an_empty_element': b'<r><b></b>&x;<c/></r>',
+    'inside_cdata': b'<r><![CDATA[a\xffb]]>c&x;</r>',
+    'after_a_comment_and_a_pi': b'<r><!-- c --><?p d?>&x;<e/></r>',
+    'after_a_comment_that_opens_with_its_close': b'<r><a><!--> c -->x</b>'
+                                                 b'</r>',
+    'in_the_epilog': b'<r><a/></r><!-- c --><b/>',
+    'in_the_root_start_tag': b'<?xml version="1.0"?>\n<!-- c -->\n<r a="1"'
+                             b'b="2">&amp;<a>x</a></r>',
+    'external_dtd_and_standalone': b'<?xml version="1.0" standalone="yes"?>'
+                                   b'<!DOCTYPE r SYSTEM "r.dtd"><r>a&nbsp;b'
+                                   b'&amp;</r>',
+}
+
+
+def _iter_view(mod, data, consume=False):
+    """What ``mod.iterparse(data)`` shows: for each ('end', element)
+    event, the element as it is then (tag, attributes, text,
+    ``itertext()``), and the dump of the tree at the end; with
+    ``consume``, each ocr_page element is cleared and its earlier
+    siblings deleted as it comes, as inputs/hocr.py does.  Attributes
+    compare as a dict: lxml keeps a repeated attribute's second node,
+    whose value ``get()`` never gives."""
+    ctx = mod.iterparse(io.BytesIO(data), events=('end',), html=False,
+                        recover=True, huge_tree=True)
+    events = []
+    try:
+        for _, el in ctx:
+            events.append((el.tag, sorted(dict(el.attrib).items()), el.text,
+                           list(el.itertext())))
+            if consume and isinstance(el.tag, str) and \
+                    el.tag.endswith('div') and \
+                    (el.get('class') or '').strip() == 'ocr_page':
+                el.clear()
+                parent = el.getparent()
+                if parent is not None:
+                    while el.getprevious() is not None:
+                        del parent[0]
+    except mod.XMLSyntaxError:
+        events.append('XMLSyntaxError')
+    dump = _dump(ctx.root, mod)
+    if dump is not None:
+        dump = [d[:3] + (None if d[3] is None else sorted(dict(d[3]).items()),)
+                + d[4:] for d in dump]
+    return events, dump
+
+
+def _iter_same(data):
+    for consume in (False, True):
+        assert _iter_view(etree_compat, data, consume) == \
+            _iter_view(lxml_etree, data, consume), (consume, data[:300])
+
+
+@pytest.mark.parametrize('data', RECOVERY_CASES)
+def test_iterparse_recovers_as_lxml(data):
+    _iter_same(data)
+
+
+@pytest.mark.parametrize('name', sorted(hocr_cases.CASES))
+def test_iterparse_reads_the_c16_rows_as_lxml(name):
+    _iter_same(hocr_cases.CASES[name])
+
+
+@pytest.mark.parametrize('name', sorted(BOUNDARY_CASES))
+def test_iterparse_hands_over_from_expat_as_lxml(name):
+    _iter_same(BOUNDARY_CASES[name])
+
+
+@pytest.mark.parametrize('group', range(10))
+def test_iterparse_reads_mutated_hocr_as_lxml(group):
+    for seed in range(group * 20, group * 20 + 20):
+        _iter_same(hocr_cases.mutated(seed))
+
+
+def _long_mutated(seed):
+    """60 generated pages (past two of lxml's 32 KiB reads) with 1-4
+    insertions or deletions, half of them at a read's boundary, cut
+    short one time in five."""
+    rng = random.Random(seed)
+    words = hocr_cases.VOCABULARY
+    pages = [hocr_cases._line([rng.choice(words) for _ in range(8)])
+             for _ in range(60)]
+    data = bytearray(hocr_cases._document(pages))
+    lo = data.index(b'<html')
+    for _ in range(rng.randint(1, 4)):
+        if rng.random() < 0.5:
+            k = 32768 * rng.randint(1, 2) + rng.randint(-40, 40)
+        else:
+            k = rng.randrange(lo, len(data))
+        if rng.random() < 0.6:
+            data[k:k] = rng.choice(hocr_cases.INSERTS)
+        elif data[k] in b'<&>"':
+            del data[k]
+    if rng.random() < 0.2:
+        del data[rng.randrange(lo, len(data)):]
+    return bytes(data)
+
+
+@pytest.mark.parametrize('seed', range(6))
+def test_iterparse_reads_long_mutated_hocr_as_lxml(seed):
+    _iter_same(_long_mutated(seed))
+
+
+def _body_mutated(rng):
+    """A document of _xml_clean's with 1-3 insertions, deletions or
+    changed bytes after the root's start tag (_Recover does not follow
+    libxml2 through a broken XML declaration or DOCTYPE)."""
+    doc = bytearray(_xml_clean(rng))
+    lo = doc.index(b'<r xmlns:e="v" xmlns:x="y">') + 27
+    for _ in range(rng.randint(1, 3)):
+        k = rng.randrange(lo, len(doc))
+        op = rng.random()
+        if op < 0.4:
+            del doc[k]
+        elif op < 0.8:
+            doc[k:k] = rng.choice([b'<', b'&', b'>', b'"', b'/', b'a', b' ',
+                                   b'\xff'])
+        else:
+            doc[k] = rng.randrange(256)
+    return bytes(doc)
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_iterparse_reads_generated_xml_as_lxml(seed):
+    """Namespaces, entities of an internal DTD, CDATA, comments and PIs
+    around the errors."""
+    rng = random.Random(200 + seed)
+    for _ in range(100):
+        _iter_same(_body_mutated(rng))
+
+
+def test_iterparse_live_tree_matches_lxml():
+    """clear() drops text, tail, attributes and children; getprevious()
+    sees comments and PIs; del parent[0] takes the tail along;
+    getparent() after a sibling's deletion; the root after the end."""
+    data = (b'<r><a k="v">t<b/>u</a>ta<!-- c -->tc<p>x</p>tp<?q z?>tq'
+            b'<s><i>1</i><j>2</j></s>ts</r>')
+
+    def view(mod):
+        out = []
+        ctx = mod.iterparse(io.BytesIO(data), events=('end',), html=False,
+                            recover=True, huge_tree=True)
+        for _, el in ctx:
+            prev = el.getprevious()
+            out.append((el.tag, None if prev is None else (
+                prev.tag if isinstance(prev.tag, str) else prev.text)))
+            if el.tag == 'a':
+                el.clear()
+                out.append((el.text, el.tail, dict(el.attrib), len(el)))
+            if el.tag == 'p':
+                parent = el.getparent()
+                while el.getprevious() is not None:
+                    del parent[0]
+                out.append((parent.text, len(parent), el.getparent().tag,
+                            el.getprevious()))
+            if el.tag == 'j':
+                out.append(el.getparent().tag)
+        out.append(_dump(ctx.root, mod))
+        return out
+    assert view(etree_compat) == view(lxml_etree)
+
+
+def test_iterparse_takes_only_the_hocr_arguments():
+    src = io.BytesIO(b'<r/>')
+    assert [e for e, _ in etree_compat.iterparse(
+        src, events=('end',), html=False, recover=True,
+        huge_tree=True)] == ['end']
+    for kw in ({'events': ('start', 'end')}, {'html': True},
+               {'recover': False}, {'huge_tree': False}):
+        args = dict(events=('end',), html=False, recover=True,
+                    huge_tree=True)
+        args.update(kw)
+        with pytest.raises(TypeError):
+            etree_compat.iterparse(io.BytesIO(b'<r/>'), **args)
+
+
+@pytest.mark.parametrize('name', sorted(XML_CASES))
+def test_parse_raises_where_lxml_parse_raises(tmp_path, name):
+    """parse() of a path and of a file: lxml.etree.parse's tree, or its
+    XMLSyntaxError."""
+    path = tmp_path / 'doc.xml'
+    path.write_bytes(XML_CASES[name])
+
+    def outcome(mod, source):
+        try:
+            return _dump(mod.parse(source).getroot(), mod)
+        except mod.XMLSyntaxError:
+            return 'XMLSyntaxError'
+    for source in (str(path), lambda: open(path, 'rb')):
+        a = outcome(etree_compat, source() if callable(source) else source)
+        b = outcome(lxml_etree, source() if callable(source) else source)
+        assert a == b

@@ -3,9 +3,10 @@ the JAX package (``archive_pdf_tools_tpu``), and its main path (hOCR
 lines, layer downsampling, scandata, --from-pdf and -J tpu included)
 needs no lxml (GPU machines may not ship it), nor do the off-path
 options, the compress-pdf-images, pdfcomp, pdf-to-imagestack,
-pdfrenderer and epub-to-pdf tools and the debug tools.  The runs below
-block all three imports, with ``APT_PLATFORM=cpu`` set as the JAX
-package's tools set it."""
+pdfrenderer, pdf-metadata-json, pdf-to-hocr and epub-to-pdf tools, the
+debug tools, and hOCR that is not well-formed.  The runs below block all
+three imports, with ``APT_PLATFORM=cpu`` set as the JAX package's tools
+set it."""
 
 import ast
 import os
@@ -49,7 +50,7 @@ for name in ('ops.lines_cuda', 'ops.paste_cuda', 'ops.resize',
              'tools.partial_blur', 'tools.compress', 'tools.mrcview',
              'tools.pdfimagesmrc', 'cli.pdf_to_imagestack',
              'cli.pdfrenderer_cli', 'utils.etree_compat', 'pdf.embedfont',
-             'cli.epub_to_pdf'):
+             'cli.epub_to_pdf', 'inputs.hocr', 'cli.pdf_metadata_json'):
     assert pkg.__name__ + '.' + name in names, name
 ''' + _NO_JAX_PKG + r'''
 print(len(names), sys.modules['jax'] is not None)
@@ -373,9 +374,101 @@ def test_pyproject_names_every_entry_point_of_the_port():
     ours = {k: v for k, v in scripts.items() if v.startswith(PORT + '.')}
     assert set(ours) == {'recode_pdf_torch', 'compress-pdf-images_torch',
                          'pdfcomp_torch', 'pdf-to-imagestack_torch',
-                         'pdfrenderer_torch', 'epub-to-pdf_torch'}
+                         'pdfrenderer_torch', 'epub-to-pdf_torch',
+                         'pdf-metadata-json_torch'}
     sys.path.insert(0, ROOT)
     for name, target in ours.items():
         module, func = target.split(':')
         assert callable(getattr(importlib.import_module(module), func))
         assert os.access(os.path.join(ROOT, 'bin', name), os.X_OK)
+    # the JAX package ships bin/pdf-to-hocr but no pdf-to-hocr script;
+    # the port's launcher twins it, with no script either
+    assert 'pdf-to-hocr' not in scripts and 'pdf-to-hocr_torch' not in scripts
+    assert os.access(os.path.join(ROOT, 'bin', 'pdf-to-hocr_torch'), os.X_OK)
+
+
+def test_metadata_and_hocr_launchers_run_without_jax_and_lxml(tmp_path):
+    """bin/pdf-metadata-json_torch and bin/pdf-to-hocr_torch on a small
+    PDF the port wrote: the JAX tools' JSON report and hOCR."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from archive_pdf_tools_tpu.cli.pdf_metadata_json import main as jax_meta
+    from archive_pdf_tools_tpu.cli.pdf_to_hocr import main as jax_to_hocr
+    from archive_pdf_tools_tpu_torch import recode
+    from tests.fixtures import make_book
+    torch.set_num_threads(2)
+    stack, hocr, _ = make_book(tmp_path, n_pages=2, w=200, h=260, dpi=100)
+    pdf = str(tmp_path / 'port.pdf')
+    recode(from_imagestack=stack, hocr_file=hocr, out_pdf=pdf, dpi=100,
+           device='cpu')
+    bin_dir = os.path.join(ROOT, 'bin')
+    _run_blocked([os.path.join(bin_dir, 'pdf-metadata-json_torch'), pdf,
+                  tmp_path / 'port.json'])
+    _run_blocked([os.path.join(bin_dir, 'pdf-to-hocr_torch'), '-f', pdf,
+                  '-J', tmp_path / 'port.json', '-o', tmp_path / 'port.hocr'])
+    assert jax_meta([pdf, str(tmp_path / 'jax.json')]) == 0
+    assert jax_to_hocr(['-f', pdf, '-J', str(tmp_path / 'jax.json'), '-o',
+                        str(tmp_path / 'jax.hocr')]) == 0
+    for name in ('json', 'hocr'):
+        ours = (tmp_path / ('port.' + name)).read_bytes()
+        assert ours == (tmp_path / ('jax.' + name)).read_bytes(), name
+    assert b'ocrx_word' in (tmp_path / 'port.hocr').read_bytes()
+
+
+_C16_WITHOUT_LXML = _BLOCK + r'''
+import io, pathlib
+sys.path.insert(0, %(root)r)
+sys.path.insert(0, %(tests)r)
+import torch
+torch.set_num_threads(2)
+from PIL import Image
+import hocr_cases
+from archive_pdf_tools_tpu_torch.inputs import hocr
+from archive_pdf_tools_tpu_torch.pdf.textextract import pdf_to_hocr
+from archive_pdf_tools_tpu_torch.validators import validate_pdfa
+from archive_pdf_tools_tpu_torch.cli.recode_pdf import main as recode_main
+from archive_pdf_tools_tpu_torch.cli.compress_pdf_images import main as comp
+from archive_pdf_tools_tpu_torch.cli.pdfrenderer_cli import main as render
+tmp = pathlib.Path(%(tmp)r)
+fx = hocr_cases._fixtures()
+words = []
+for i in range(3):
+    img, wds = fx.render_book_page(320, 416, seed=i, rgb=i == 1, noise=0)
+    Image.fromarray(img).save(str(tmp / ('page_%%04d.png' %% i)))
+    words.append(wds)
+(tmp / 'c16.hocr').write_bytes(hocr_cases.book_hocr(words))
+
+
+def text_layer(pdf):
+    buf = io.BytesIO()
+    pdf_to_hocr(str(pdf), buf)
+    return hocr_cases.words(hocr_cases.read(hocr, buf.getvalue()))
+
+
+common = ['--device', 'cpu', '--dpi', '100']
+assert recode_main(['--from-imagestack', str(tmp / 'page_*.png'),
+                    '--hocr-file', str(tmp / 'c16.hocr'), '-o',
+                    str(tmp / 'out.pdf')] + common) == 0
+validate_pdfa(str(tmp / 'out.pdf'))
+assert text_layer(tmp / 'out.pdf') == hocr_cases.PIN_WORDS['book']
+assert comp([str(tmp / 'out.pdf'), str(tmp / 'c16.hocr'),
+             str(tmp / 'comp.pdf'), '--recompress-mrc'] + common) == 0
+assert render(['-T', str(tmp / 'c16.hocr'), '-o', str(tmp / 'text.pdf')]) == 0
+assert text_layer(tmp / 'text.pdf') == hocr_cases.PIN_WORDS['book']
+''' + _NO_JAX_PKG + r'''
+print('rc', 0)
+'''
+
+
+def test_c16_hocr_runs_without_jax_and_lxml(tmp_path):
+    """recode_pdf_torch --hocr-file, compress-pdf-images_torch and
+    pdfrenderer_torch on hOCR with four of ROADMAP C16's faults (an
+    undefined entity, a bare '&', an unclosed meta, the file cut inside
+    its last page), lxml blocked: exit 0, and the words the JAX reader
+    reads (tests/hocr_cases.py's pins) in the text layers."""
+    code = _C16_WITHOUT_LXML % {'root': ROOT, 'tmp': str(tmp_path),
+                                'tests': os.path.join(ROOT, 'tests')}
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, env=_env(), timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith('rc 0')

@@ -1,6 +1,7 @@
-"""The port's ElementTree scandata.xml reader held equal to the JAX
-package's lxml reader, and ``recode(scandata_file=...)`` of the port held
-byte-identical with the JAX package's."""
+"""The port's scandata.xml reader (a copy of the JAX package's over
+``utils/etree_compat.py``) held equal to the JAX package's lxml reader,
+and ``recode(scandata_file=...)`` of the port held byte-identical with
+the JAX package's."""
 
 import pytest
 import torch
