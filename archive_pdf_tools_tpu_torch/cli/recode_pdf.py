@@ -9,7 +9,8 @@ visible GPU when there are several; ``cpu`` runs the plain PyTorch
 versions of the kernels).  With ``--from-pdf`` and no ``--hocr-file``,
 the input's own text layer is extracted as hOCR first.  Every flag of
 the JAX package's ``recode_pdf`` runs; ``--profile DIR`` writes a
-torch.profiler Chrome trace, ``DIR/trace.json``.
+torch.profiler Chrome trace, ``DIR/trace.json``, that holds every
+thread's spans (main thread, page loader, encode pool).
 """
 
 import argparse
@@ -117,7 +118,9 @@ def build_parser():
                            '--out-dir (checkpoint/resume)')
     misc.add_argument('--profile', type=str, default=None, metavar='DIR',
                       help='Write a torch.profiler trace of the '
-                           'compression pass to DIR/trace.json')
+                           'compression pass to DIR/trace.json, with '
+                           'every thread\'s spans (main thread, page '
+                           'loader, encode pool)')
 
     comp = parser.add_argument_group('Compression')
     comp.add_argument('-m', '--image-mode', type=int, default=IMAGE_MODE_MRC,

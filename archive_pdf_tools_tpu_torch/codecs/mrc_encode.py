@@ -17,7 +17,6 @@ alpha 1 (opaque foreground) at text.
 """
 
 import io
-import time as _time
 from collections import namedtuple
 from os import close, remove
 from tempfile import mkstemp
@@ -27,6 +26,7 @@ from PIL import Image
 
 from ..const import (COMPRESSOR_JPEG, COMPRESSOR_JPEG2000, COMPRESSOR_JBIG2,
                      COMPRESSOR_CCITT, JPEG2000_IMPL_PILLOW)
+from ..utils.spans import span
 from . import jbig2 as jbig2_codec
 from . import ccitt as ccitt_codec
 from . import jpeg as jpeg_codec
@@ -40,6 +40,10 @@ EncodedLayer = namedtuple('EncodedLayer', 'data fmt width height gray')
 # layout — exactly what the device mask transfer produces, so the
 # pipeline can hand masks to the JBIG2 encoder without a host unpack.
 PackedMask = namedtuple('PackedMask', 'bits width height')
+
+# the timing key (and span) of each mask format
+_MASK_KEYS = {COMPRESSOR_JBIG2: 'mask_jbig2', COMPRESSOR_CCITT: 'mask_ccitt',
+             'png': 'mask_png'}
 
 
 def encode_mrc_mask(np_mask, fmt=COMPRESSOR_JBIG2, embedded=True,
@@ -55,62 +59,55 @@ def encode_mrc_mask(np_mask, fmt=COMPRESSOR_JBIG2, embedded=True,
     independent horizontal region segments on a thread pool — the MQ
     coder is serial per region, so this is how the mask encode scales
     across host cores."""
-    t = _time.time()
-    packed = None
-    if isinstance(np_mask, PackedMask):
-        h, w = np_mask.height, np_mask.width
-        if (fmt == COMPRESSOR_JBIG2 and not jbig2_symbol_mode
-                and jbig2_bands <= 1):
-            packed = np_mask.bits     # fast path: no host unpack at all
-            m = None
-        else:
-            m = np.unpackbits(np.asarray(np_mask.bits),
-                              axis=-1)[:, :w].astype(bool)
-    else:
-        m = np.asarray(np_mask).astype(bool)
-        h, w = m.shape
-    decode = None
-    if packed is not None:
-        # ink stored as jbig2 white (see the polarity note below), via
-        # the packed-row encoder: bit-identical with the unpacked path
-        data = jbig2_codec.encode_jbig2_packed(packed, w, h, invert=True,
-                                               embedded=embedded)
-        if timing_data is not None:
-            timing_data.append(('mask_jbig2', _time.time() - t))
-        return EncodedMask(data, fmt, w, h, None)
-    if fmt == COMPRESSOR_JBIG2:
-        # ink is stored as jbig2 *white* so the PDF sample (which PDF
-        # consumers invert relative to the jbig2 bit) is 1 at text.
-        # Symbol coding needs ink as the 1 bits (connected components of
-        # text, not of paper), so it stores ink as jbig2 black and flips
-        # back with a /Decode [1 0] array on the image dict.
-        if jbig2_symbol_mode:
-            data = jbig2_codec.encode_jbig2(
-                m, embedded=embedded,
-                symbol_mode=jbig2_symbol_mode
-                if jbig2_symbol_mode in ('lossy', 'refine') else True)
-            decode = (1, 0)
-            if jbig2_symbol_mode == 'auto':
-                gen = jbig2_codec.encode_jbig2(~m, embedded=embedded)
-                if len(gen) <= len(data):
-                    data, decode = gen, None
-        else:
-            data = jbig2_codec.encode_jbig2(~m, embedded=embedded,
-                                            bands=jbig2_bands)
-        key = 'mask_jbig2'
-    elif fmt == COMPRESSOR_CCITT:
-        data = ccitt_codec.encode_ccitt_g4(m)
-        key = 'mask_ccitt'
-    elif fmt == 'png':
-        buf = io.BytesIO()
-        Image.fromarray(m).save(buf, format='PNG', compress_level=0)
-        data = buf.getvalue()
-        key = 'mask_png'
-    else:
+    if fmt not in _MASK_KEYS:
         raise ValueError('unknown mask format: %r' % (fmt,))
-    if timing_data is not None:
-        timing_data.append((key, _time.time() - t))
-    return EncodedMask(data, fmt, w, h, decode)
+    with span(_MASK_KEYS[fmt], timing_data):
+        packed = None
+        if isinstance(np_mask, PackedMask):
+            h, w = np_mask.height, np_mask.width
+            if (fmt == COMPRESSOR_JBIG2 and not jbig2_symbol_mode
+                    and jbig2_bands <= 1):
+                packed = np_mask.bits     # fast path: no host unpack at all
+                m = None
+            else:
+                m = np.unpackbits(np.asarray(np_mask.bits),
+                                  axis=-1)[:, :w].astype(bool)
+        else:
+            m = np.asarray(np_mask).astype(bool)
+            h, w = m.shape
+        decode = None
+        if packed is not None:
+            # ink stored as jbig2 white (see the polarity note below), via
+            # the packed-row encoder: bit-identical with the unpacked path
+            data = jbig2_codec.encode_jbig2_packed(packed, w, h, invert=True,
+                                                   embedded=embedded)
+            return EncodedMask(data, fmt, w, h, None)
+        if fmt == COMPRESSOR_JBIG2:
+            # ink is stored as jbig2 *white* so the PDF sample (which PDF
+            # consumers invert relative to the jbig2 bit) is 1 at text.
+            # Symbol coding needs ink as the 1 bits (connected components of
+            # text, not of paper), so it stores ink as jbig2 black and flips
+            # back with a /Decode [1 0] array on the image dict.
+            if jbig2_symbol_mode:
+                data = jbig2_codec.encode_jbig2(
+                    m, embedded=embedded,
+                    symbol_mode=jbig2_symbol_mode
+                    if jbig2_symbol_mode in ('lossy', 'refine') else True)
+                decode = (1, 0)
+                if jbig2_symbol_mode == 'auto':
+                    gen = jbig2_codec.encode_jbig2(~m, embedded=embedded)
+                    if len(gen) <= len(data):
+                        data, decode = gen, None
+            else:
+                data = jbig2_codec.encode_jbig2(~m, embedded=embedded,
+                                                bands=jbig2_bands)
+        elif fmt == COMPRESSOR_CCITT:
+            data = ccitt_codec.encode_ccitt_g4(m)
+        else:
+            buf = io.BytesIO()
+            Image.fromarray(m).save(buf, format='PNG', compress_level=0)
+            data = buf.getvalue()
+        return EncodedMask(data, fmt, w, h, decode)
 
 
 def encode_mrc_img(np_img, img_compression_flags, imgtype=None,
@@ -129,72 +126,74 @@ def encode_mrc_img(np_img, img_compression_flags, imgtype=None,
     overlaps host work.  With qbands, np_img may be None — the layer
     pixels then never cross the host link at all (geometry comes from
     the transform meta)."""
-    t = _time.time()
     if imgtype not in ('bg', 'fg'):
         raise ValueError("imgtype should be 'bg' or 'fg'")
-    if np_img is None:
-        if jp2_qbands is None or jpeg2000_implementation != 'tpu' \
-                or mrc_image_format == COMPRESSOR_JPEG:
-            raise ValueError('np_img=None requires the tpu qbands path')
-        qmeta = jp2_qbands[1]
-        gray = qmeta['ncomp'] == 1
-        h, w = qmeta['h'], qmeta['w']
-        img = None
-    else:
-        gray = len(np_img.shape) == 2
-        h, w = (int(s) for s in np_img.shape[:2])
-        img = None
-        if jpeg2000_implementation != 'tpu' \
-                or mrc_image_format == COMPRESSOR_JPEG:
-            img = Image.fromarray(np.asarray(np_img))
-
-    if mrc_image_format == COMPRESSOR_JPEG:
-        data = jpeg_codec.encode_jpeg(img, img_compression_flags, debug=debug)
-    else:
-        if jpeg2000_implementation == 'tpu':
-            # in-tree encoder: the port's device transform + host Tier-1
-            from .jp2tpu import encode_jp2_tpu, encode_jp2_from_qbands
-            from .jpeg2000 import _pillow_kwargs
-            kw = _pillow_kwargs(img_compression_flags[0]) \
-                if img_compression_flags and img_compression_flags[0] else {}
-            if jp2_qbands is not None:
-                page_q, meta = jp2_qbands[:2]
-                page_idx = jp2_qbands[2] if len(jp2_qbands) > 2 else None
-                if callable(page_q):
-                    page_q = page_q()
-                data = encode_jp2_from_qbands(page_q, meta,
-                                              ratio=kw.get('ratio'),
-                                              workers=threads,
-                                              page_idx=page_idx)
-            else:
-                data = encode_jp2_tpu(np_img, ratio=kw.get('ratio'),
-                                      base_delta=kw.get('delta', 1.0 / 64),
-                                      levels=int(kw.get('levels', 5)),
-                                      workers=threads, device=device)
-        elif jpeg2000_implementation == JPEG2000_IMPL_PILLOW:
-            buf = io.BytesIO()
-            from .jpeg2000 import _pillow_kwargs
-            img.save(buf, format='JPEG2000',
-                     **_pillow_kwargs(img_compression_flags[0]))
-            data = buf.getvalue()
+    with span('%s_jp2' % imgtype, timing_data):
+        if np_img is None:
+            if jp2_qbands is None or jpeg2000_implementation != 'tpu' \
+                    or mrc_image_format == COMPRESSOR_JPEG:
+                raise ValueError('np_img=None requires the tpu qbands path')
+            qmeta = jp2_qbands[1]
+            gray = qmeta['ncomp'] == 1
+            h, w = qmeta['h'], qmeta['w']
+            img = None
         else:
-            fd, out_path = mkstemp(prefix=imgtype, suffix='.jp2', dir=tmp_dir)
-            close(fd)
-            remove(out_path)  # kakadu wants the file absent (mrc.py:555)
-            try:
-                encode_jpeg2000(img, out_path, jpeg2000_implementation,
-                                img_compression_flags, tmp_dir=tmp_dir,
-                                imgtype=imgtype, threads=threads, debug=debug)
-                with open(out_path, 'rb') as fp:
-                    data = fp.read()
-            finally:
+            gray = len(np_img.shape) == 2
+            h, w = (int(s) for s in np_img.shape[:2])
+            img = None
+            if jpeg2000_implementation != 'tpu' \
+                    or mrc_image_format == COMPRESSOR_JPEG:
+                img = Image.fromarray(np.asarray(np_img))
+
+        if mrc_image_format == COMPRESSOR_JPEG:
+            data = jpeg_codec.encode_jpeg(img, img_compression_flags,
+                                          debug=debug)
+        else:
+            if jpeg2000_implementation == 'tpu':
+                # in-tree encoder: the port's device transform + host Tier-1
+                from .jp2tpu import encode_jp2_tpu, encode_jp2_from_qbands
+                from .jpeg2000 import _pillow_kwargs
+                kw = (_pillow_kwargs(img_compression_flags[0])
+                      if img_compression_flags and img_compression_flags[0]
+                      else {})
+                if jp2_qbands is not None:
+                    page_q, meta = jp2_qbands[:2]
+                    page_idx = jp2_qbands[2] if len(jp2_qbands) > 2 else None
+                    if callable(page_q):
+                        page_q = page_q()
+                    data = encode_jp2_from_qbands(page_q, meta,
+                                                  ratio=kw.get('ratio'),
+                                                  workers=threads,
+                                                  page_idx=page_idx)
+                else:
+                    data = encode_jp2_tpu(np_img, ratio=kw.get('ratio'),
+                                          base_delta=kw.get('delta', 1.0 / 64),
+                                          levels=int(kw.get('levels', 5)),
+                                          workers=threads, device=device)
+            elif jpeg2000_implementation == JPEG2000_IMPL_PILLOW:
+                buf = io.BytesIO()
+                from .jpeg2000 import _pillow_kwargs
+                img.save(buf, format='JPEG2000',
+                         **_pillow_kwargs(img_compression_flags[0]))
+                data = buf.getvalue()
+            else:
+                fd, out_path = mkstemp(prefix=imgtype, suffix='.jp2',
+                                       dir=tmp_dir)
+                close(fd)
+                remove(out_path)  # kakadu wants the file absent (mrc.py:555)
                 try:
-                    remove(out_path)
-                except FileNotFoundError:
-                    pass
-    if timing_data is not None:
-        timing_data.append(('%s_jp2' % imgtype, _time.time() - t))
-    return EncodedLayer(data, mrc_image_format, w, h, gray)
+                    encode_jpeg2000(img, out_path, jpeg2000_implementation,
+                                    img_compression_flags, tmp_dir=tmp_dir,
+                                    imgtype=imgtype, threads=threads,
+                                    debug=debug)
+                    with open(out_path, 'rb') as fp:
+                        data = fp.read()
+                finally:
+                    try:
+                        remove(out_path)
+                    except FileNotFoundError:
+                        pass
+        return EncodedLayer(data, mrc_image_format, w, h, gray)
 
 
 def encode_mrc_foreground(np_fg, fg_compression_flags, **kw):

@@ -14,11 +14,10 @@ the JAX package there are no height buckets, no host patch path for
 tall lines and no line capacity that splits a batch.
 
 Batching contract: all pages in one call share (height, width, mode,
-dpi-window).  Stage timings use the reference's keys; each stage ends
-with a device synchronise so its time is the device's, not the enqueue.
+dpi-window).  Each stage is a span (``utils/spans.py``) of the
+reference's timing key; each stage ends with a device synchronise so its
+time is the device's, not the enqueue.
 """
-
-import time as _time
 
 import numpy as np
 import torch
@@ -33,19 +32,9 @@ from ..parallel.sharded import (sharded_denoise, sharded_global_threshold,
                                 sharded_line_thresholds, sharded_optimise,
                                 sharded_paste)
 from ..utils.backend import resolve_device, synchronize
+from ..utils.spans import span
 from . import decompose as D
 from .hocr_prep import prepare_lines
-
-
-class TimingData:
-    """Reference-compatible (stage, seconds) accumulator."""
-
-    def __init__(self, sink=None):
-        self.sink = sink
-
-    def add(self, key, t0):
-        if self.sink is not None:
-            self.sink.append((key, _time.time() - t0))
 
 
 def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
@@ -74,7 +63,6 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
     threshold and the ordered paste), ``fast_denoise`` (``denoise`` for
     bregman)."""
     dev = resolve_device(device)
-    td = TimingData(timing_data)
     if isinstance(np_images, torch.Tensor):
         imgs = np_images
     else:
@@ -86,44 +74,40 @@ def decompose_masks(np_images, word_datas, dpi=None, downsample=None,
     per = imgs.shape[0] // len(shards)
     used = set(shards)
 
-    tl0 = _time.time()
-    page_boxes = [prepare_lines(wd, w, h, downsample=downsample)
-                  for wd in word_datas]
-    prep_dt = _time.time() - tl0
+    def upload():
+        dev_imgs = torch.as_tensor(imgs).to(dev)
+        return dev_imgs, shard_pages(shards, dev_imgs)
 
-    t0 = _time.time()
-    dev_imgs = torch.as_tensor(imgs).to(dev)
-    shard_imgs = shard_pages(shards, dev_imgs)
     if rgb:
-        grays = [D.gray_601(x) for x in shard_imgs]
-        _synchronize(used)
-        td.add('grey_conversion', t0)
+        with span('grey_conversion', timing_data):
+            dev_imgs, shard_imgs = upload()
+            grays = [D.gray_601(x) for x in shard_imgs]
+            _synchronize(used)
     else:
-        grays = shard_imgs
+        dev_imgs, grays = upload()
 
-    # the (host) line preparation is folded into this stage, as in the
-    # JAX package
-    t0 = _time.time() - prep_dt
-    lines = [RaggedLines.from_page_boxes(page_boxes[s * per:(s + 1) * per],
-                                         h, w, d)
-             for s, d in enumerate(shards)]
-    crops = sharded_line_thresholds(grays, lines, window)
-    selectors = [None if c is None else D.line_selector(*c, ln)
-                 for c, ln in zip(crops, lines)]
-    td.add('hocr_mask_gen', t0)
+    # the (host) line preparation is part of this stage, as in the JAX
+    # package
+    with span('hocr_mask_gen', timing_data):
+        page_boxes = [prepare_lines(wd, w, h, downsample=downsample)
+                      for wd in word_datas]
+        lines = [RaggedLines.from_page_boxes(
+                     page_boxes[s * per:(s + 1) * per], h, w, d)
+                 for s, d in enumerate(shards)]
+        crops = sharded_line_thresholds(grays, lines, window)
+        selectors = [None if c is None else D.line_selector(*c, ln)
+                     for c, ln in zip(crops, lines)]
 
-    t0 = _time.time()
-    masks = sharded_global_threshold(grays, window)
-    masks = sharded_paste(crops, lines, selectors, masks)
-    _synchronize(used)
-    td.add('threshold', t0)
+    with span('threshold', timing_data):
+        masks = sharded_global_threshold(grays, window)
+        masks = sharded_paste(crops, lines, selectors, masks)
+        _synchronize(used)
 
     if denoise_mask is not None and denoise_mask != DENOISE_NONE:
-        t0 = _time.time()
-        masks = sharded_denoise(masks, denoise_mask, exact_denoise)
-        _synchronize(used)
-        td.add('fast_denoise' if denoise_mask == DENOISE_FAST else 'denoise',
-               t0)
+        with span('fast_denoise' if denoise_mask == DENOISE_FAST
+                  else 'denoise', timing_data):
+            masks = sharded_denoise(masks, denoise_mask, exact_denoise)
+            _synchronize(used)
     return gather_pages(masks, dev), dev_imgs
 
 
@@ -140,30 +124,26 @@ def decompose_layers(mask, dev_imgs, bg_downsample=None, fg_downsample=None,
     on each device's shard, the layers gathered on the mask's device.
     ``errors`` (a set) collects the reference's too-small-to-downsample
     warning."""
-    td = TimingData(timing_data)
     home = mask.device
     shards = split_devices(devices, mask.shape[0]) or [home]
     used = set(shards) | {home}
     masks, imgs = shard_pages(shards, mask, dev_imgs)
-    t0 = _time.time()
-    fg = gather_pages(sharded_optimise(masks, imgs, 3), home)
-    _synchronize(used)
-    td.add('fg_partial_blur', t0)
+    with span('fg_partial_blur', timing_data):
+        fg = gather_pages(sharded_optimise(masks, imgs, 3), home)
+        _synchronize(used)
     if fg_downsample:
-        t0 = _time.time()
-        fg = _downsample(fg, fg_downsample, errors)
-        synchronize(home)
-        td.add('fg_downsample', t0)
+        with span('fg_downsample', timing_data):
+            fg = _downsample(fg, fg_downsample, errors)
+            synchronize(home)
 
-    t0 = _time.time()
-    bg = gather_pages(sharded_optimise(masks, imgs, 10, invert=True), home)
-    _synchronize(used)
-    td.add('bg_partial_blur', t0)
+    with span('bg_partial_blur', timing_data):
+        bg = gather_pages(sharded_optimise(masks, imgs, 10, invert=True),
+                          home)
+        _synchronize(used)
     if bg_downsample:
-        t0 = _time.time()
-        bg = _downsample(bg, bg_downsample, errors)
-        synchronize(home)
-        td.add('bg_downsample', t0)
+        with span('bg_downsample', timing_data):
+            bg = _downsample(bg, bg_downsample, errors)
+            synchronize(home)
     if device:
         return fg, bg
     return fg.cpu().numpy(), bg.cpu().numpy()
@@ -209,10 +189,8 @@ def create_mrc_hocr_components(image, hocr_word_data, dpi=None,
     for one PIL image page.  ``denoise_mask=None`` is no despeckle, as
     in the reference."""
     if image.mode not in ('L', 'RGB'):
-        t0 = _time.time()
-        image = image.convert('RGB')
-        if timing_data is not None:
-            timing_data.append(('grey_conversion', _time.time() - t0))
+        with span('grey_conversion', timing_data):
+            image = image.convert('RGB')
 
     mask, dev_imgs = decompose_masks(
         [np.asarray(image)], [hocr_word_data], dpi=dpi,

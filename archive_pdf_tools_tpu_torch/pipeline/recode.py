@@ -53,8 +53,10 @@ from ..pdf.builder import DocumentBuilder
 from ..pdf.reader import PdfReader
 from ..pdf.writer import Name
 from ..pipeline.timing import get_timing_summary, Reporter
+from ..utils import spans
 from ..utils.backend import (pack_mask_bits, resolve_device, synchronize,
                              unpack_mask_bits)
+from ..utils.spans import span
 
 PDFA_MIN_UNITS = 3
 PDFA_MAX_UNITS = 14400
@@ -121,60 +123,59 @@ def create_text_pages(builder, hocr_file, in_pdf=None, image_files=None,
                       errors=None):
     """Pass 1 (``recode.py:87-234``): one invisible-text page per hOCR
     page, honoring input-PDF page sizes or image dims + DPI policy."""
-    skipped_pages = 0
-    count = 0
-    t0 = time()
-    for idx, hocr_page in enumerate(hocr_page_iterator(hocr_file)):
-        w, h = hocr_page_get_dimensions(hocr_page)
-        hocr_dpi = hocr_page_get_scan_res(hocr_page)[1]
+    with span('text_pages') as sp:
+        skipped_pages = 0
+        count = 0
+        for idx, hocr_page in enumerate(hocr_page_iterator(hocr_file)):
+            w, h = hocr_page_get_dimensions(hocr_page)
+            hocr_dpi = hocr_page_get_scan_res(hocr_page)[1]
 
-        if skip_pages and idx in skip_pages:
-            skipped_pages += 1
-            continue
-        if stop_after is not None and (idx - skipped_pages) >= stop_after:
-            break
+            if skip_pages and idx in skip_pages:
+                skipped_pages += 1
+                continue
+            if stop_after is not None and (idx - skipped_pages) >= stop_after:
+                break
 
-        if in_pdf is not None:
-            width, height = in_pdf.page_size(idx - skipped_pages)
-            scaler = width / w
-            ppi = 72 / scaler
-        elif image_files is not None:
-            imgfile = image_files[idx]   # do not subtract skipped pages
-            if imgfile.endswith('.jp2'):
-                size, _ = get_jpeg2000_info(
-                    imgfile, jpeg2000_implementation, errors)
-                imwidth, imheight = size
+            if in_pdf is not None:
+                width, height = in_pdf.page_size(idx - skipped_pages)
+                scaler = width / w
+                ppi = 72 / scaler
+            elif image_files is not None:
+                imgfile = image_files[idx]   # do not subtract skipped pages
+                if imgfile.endswith('.jp2'):
+                    size, _ = get_jpeg2000_info(
+                        imgfile, jpeg2000_implementation, errors)
+                    imwidth, imheight = size
+                else:
+                    with Image.open(imgfile) as img:
+                        imwidth, imheight = img.size
+
+                page_dpi = dpi
+                per_page_dpi = None
+                if dpi_pages is not None:
+                    try:
+                        per_page_dpi = int(dpi_pages[idx - skipped_pages])
+                        page_dpi = per_page_dpi
+                    except (TypeError, ValueError, IndexError):
+                        pass
+                width, height, ppi = _page_geometry(
+                    imwidth, imheight, page_dpi, per_page_dpi, dpi,
+                    verbose, errors)
             else:
-                with Image.open(imgfile) as img:
-                    imwidth, imheight = img.size
+                raise ValueError('need in_pdf or image_files')
 
-            page_dpi = dpi
-            per_page_dpi = None
-            if dpi_pages is not None:
-                try:
-                    per_page_dpi = int(dpi_pages[idx - skipped_pages])
-                    page_dpi = per_page_dpi
-                except (TypeError, ValueError, IndexError):
-                    pass
-            width, height, ppi = _page_geometry(
-                imwidth, imheight, page_dpi, per_page_dpi, dpi,
-                verbose, errors)
-        else:
-            raise ValueError('need in_pdf or image_files')
+            if hocr_dpi is not None:
+                font_scaler = hocr_dpi / ppi
+            else:
+                font_scaler = 72.0 / ppi
 
-        if hocr_dpi is not None:
-            font_scaler = hocr_dpi / ppi
-        else:
-            font_scaler = 72.0 / ppi
-
-        word_data = hocr_page_to_word_data(hocr_page, font_scaler)
-        builder.add_text_page(word_data, width, height, ppi=ppi,
-                              hocr_ppi=hocr_dpi)
-        count += 1
-
-    if reporter and count:
-        ms = int(((time() - t0) / count) * 1000)
-        reporter.send({'text_pages': {'count': count, 'time-per': ms}})
+            word_data = hocr_page_to_word_data(hocr_page, font_scaler)
+            builder.add_text_page(word_data, width, height, ppi=ppi,
+                                  hocr_ppi=hocr_dpi)
+            count += 1
+        if reporter and count:
+            ms = int((sp.elapsed() / count) * 1000)
+            reporter.send({'text_pages': {'count': count, 'time-per': ms}})
     return count
 
 
@@ -249,39 +250,38 @@ class PageJob:
         self.hq = hq
 
 
+
 def _load_page_image(in_pdf, image_files, src_idx, downsample,
                      jpeg2000_implementation, threads, debug, timing_data):
     """Image load policy (``recode.py:318-372``): a source PDF page's one
     image decoded, or a multi-image page rendered whole; an image-stack
     file read.  ``--downsample`` reduces JPEG2000 files in the decoder
     and shrinks other pages with a LANCZOS thumbnail on the host."""
-    t = time()
-    downsampled = False
-    if in_pdf is not None:
-        imgs = in_pdf.page_images(src_idx)
-        if not imgs:
-            raise ValueError('page %d has no images' % src_idx)
-        if len(imgs) == 1:
-            _, _, stream = imgs[0]
-            image = _decode_pdf_image(in_pdf, stream)
+    with span('image_load', timing_data):
+        downsampled = False
+        if in_pdf is not None:
+            imgs = in_pdf.page_images(src_idx)
+            if not imgs:
+                raise ValueError('page %d has no images' % src_idx)
+            if len(imgs) == 1:
+                _, _, stream = imgs[0]
+                image = _decode_pdf_image(in_pdf, stream)
+            else:
+                image = _render_page_composite(in_pdf, src_idx)
         else:
-            image = _render_page_composite(in_pdf, src_idx)
-    else:
-        imgfile = image_files[src_idx]
-        if imgfile.endswith(('.jp2', '.jpx')):
-            image = decode_jpeg2000(imgfile, reduce_=downsample,
-                                    impl=jpeg2000_implementation,
-                                    threads=threads, debug=debug)
-            downsampled = bool(downsample)
-        else:
-            image = Image.open(imgfile)
-            image.load()
-        if image.mode == 'RGBA':
-            image = image.convert('RGB')
-        elif image.mode == 'LA':
-            image = image.convert('L')
-    if timing_data is not None:
-        timing_data.append(('image_load', time() - t))
+            imgfile = image_files[src_idx]
+            if imgfile.endswith(('.jp2', '.jpx')):
+                image = decode_jpeg2000(imgfile, reduce_=downsample,
+                                        impl=jpeg2000_implementation,
+                                        threads=threads, debug=debug)
+                downsampled = bool(downsample)
+            else:
+                image = Image.open(imgfile)
+                image.load()
+            if image.mode == 'RGBA':
+                image = image.convert('RGB')
+            elif image.mode == 'LA':
+                image = image.convert('L')
 
     if downsample is not None and not downsampled:
         w, h = image.size
@@ -399,31 +399,32 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
     timing_data = _TimingSink()
     if img_dir is not None:
         os.makedirs(img_dir, exist_ok=True)
-    jobs = []
-    skipped_pages = 0
-    for idx, hocr_page in enumerate(hocr_page_iterator(hocr_file)):
-        if skip_pages and idx in skip_pages:
-            skipped_pages += 1
-            continue
-        out_idx = idx - skipped_pages
-        if stop_after is not None and out_idx >= stop_after:
-            break
-        picked_dpi = None
-        hocr_dpi = hocr_page_get_scan_res(hocr_page)
-        if dpi_pages is not None:
-            try:
-                picked_dpi = dpi_pages[out_idx]
-            except IndexError:
-                picked_dpi = None
+    with span('hocr_jobs'):
+        jobs = []
+        skipped_pages = 0
+        for idx, hocr_page in enumerate(hocr_page_iterator(hocr_file)):
+            if skip_pages and idx in skip_pages:
+                skipped_pages += 1
+                continue
+            out_idx = idx - skipped_pages
+            if stop_after is not None and out_idx >= stop_after:
+                break
+            picked_dpi = None
+            hocr_dpi = hocr_page_get_scan_res(hocr_page)
+            if dpi_pages is not None:
+                try:
+                    picked_dpi = dpi_pages[out_idx]
+                except IndexError:
+                    picked_dpi = None
+                if picked_dpi is None:
+                    picked_dpi = hocr_dpi[1]
             if picked_dpi is None:
-                picked_dpi = hocr_dpi[1]
-        if picked_dpi is None:
-            picked_dpi = dpi
-        if picked_dpi is not None:
-            picked_dpi = int(picked_dpi)
-        hq = bool(hq_pages[out_idx]) if hq_pages else False
-        word_data = hocr_page_to_word_data(hocr_page)
-        jobs.append(PageJob(out_idx, idx, word_data, picked_dpi, hq))
+                picked_dpi = dpi
+            if picked_dpi is not None:
+                picked_dpi = int(picked_dpi)
+            hq = bool(hq_pages[out_idx]) if hq_pages else False
+            word_data = hocr_page_to_word_data(hocr_page)
+            jobs.append(PageJob(out_idx, idx, word_data, picked_dpi, hq))
 
     mask_fmt = COMPRESSOR_JBIG2 if jbig2 else 'png'
     if mask_compression == COMPRESSOR_CCITT:
@@ -440,7 +441,11 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
         n_workers = max(1, threads)
     else:
         n_workers = min(4, max(2, os.cpu_count() or 4))
-    pool = ThreadPoolExecutor(max_workers=n_workers)
+    # the loader and the pool's threads report their spans to this call
+    call_id = spans.current_call()
+    pool = ThreadPoolExecutor(max_workers=n_workers,
+                              thread_name_prefix='encode',
+                              initializer=spans.bind, initargs=(call_id,))
     pending = []   # encode futures; drained IN PAGE ORDER (main thread)
     max_pending = 4 * n_workers   # bounds fg/bg buffers held by the queue
 
@@ -465,11 +470,11 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
 
     def drain_one(fut):
         """Insert one finished page's streams (main thread, page order)."""
-        job, gray, em, eb, ef = fut.result()
-        t = time()
-        builder.insert_image(job.page_idx, eb, gray=gray)
-        builder.insert_image(job.page_idx, ef, gray=gray, mask_enc=em)
-        timing_data.append(('page_image_insertion', time() - t))
+        with span('encode_wait'):
+            job, gray, em, eb, ef = fut.result()
+        with span('page_image_insertion', timing_data):
+            builder.insert_image(job.page_idx, eb, gray=gray)
+            builder.insert_image(job.page_idx, ef, gray=gray, mask_enc=em)
 
     def jp2_transforms(plain, fg_dev, bg_dev):
         """-J tpu: the batch transforms of the pages ``plain`` (the
@@ -479,24 +484,24 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
         (``recode.py:583-651``)."""
         if not plain:
             return {}, {}
-        t = time()
-        if len(plain) < fg_dev.shape[0]:
-            idx = torch.tensor(plain, device=fg_dev.device)
-            fg_dev = fg_dev.index_select(0, idx)
-            bg_dev = bg_dev.index_select(0, idx)
-        fargs = _jp2_transform_args(fg_compression_flags)
-        fg_qb = {}
-        for a in range(0, len(plain), JP2_FG_GROUP):
-            sub = fg_dev[a:a + JP2_FG_GROUP]
-            fetch, meta = transform_jp2_batch_async(sub, **fargs)
-            for k in range(int(sub.shape[0])):
-                fg_qb[plain[a + k]] = ((lambda k=k, f=fetch: f(k)), meta, k)
-        fetch, meta = transform_jp2_batch_async(
-            bg_dev, **_jp2_transform_args(bg_compression_flags))
-        bg_qb = {i: ((lambda k=k, f=fetch: f(k)), meta, k)
-                 for k, i in enumerate(plain)}
-        timing_data.append(('jp2_batch_transform', time() - t))
-        return fg_qb, bg_qb
+        with span('jp2_batch_transform', timing_data):
+            if len(plain) < fg_dev.shape[0]:
+                idx = torch.tensor(plain, device=fg_dev.device)
+                fg_dev = fg_dev.index_select(0, idx)
+                bg_dev = bg_dev.index_select(0, idx)
+            fargs = _jp2_transform_args(fg_compression_flags)
+            fg_qb = {}
+            for a in range(0, len(plain), JP2_FG_GROUP):
+                sub = fg_dev[a:a + JP2_FG_GROUP]
+                fetch, meta = transform_jp2_batch_async(sub, **fargs)
+                for k in range(int(sub.shape[0])):
+                    fg_qb[plain[a + k]] = ((lambda k=k, f=fetch: f(k)),
+                                           meta, k)
+            fetch, meta = transform_jp2_batch_async(
+                bg_dev, **_jp2_transform_args(bg_compression_flags))
+            bg_qb = {i: ((lambda k=k, f=fetch: f(k)), meta, k)
+                     for k, i in enumerate(plain)}
+            return fg_qb, bg_qb
 
     def process_batch(batch_jobs, batch_images):
         mode = batch_images[0].mode
@@ -508,20 +513,18 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
                 em = encode_mrc_mask(arr.astype(bool), fmt=mask_fmt,
                                      embedded=True, timing_data=timing_data,
                                      debug=debug)
-                t = time()
-                builder.insert_raw_mask_page(job.page_idx, em)
-                timing_data.append(('page_image_insertion', time() - t))
+                with span('page_image_insertion', timing_data):
+                    builder.insert_raw_mask_page(job.page_idx, em)
             return
 
         pages = arrs
         if grayscale_pdf and mode == 'RGB':
             # the conversion stays on the device and feeds the MRC
-            t = time()
-            pages = special_gray_convert(
-                torch.from_numpy(np.stack(arrs)).to(device))
-            mode = 'L'
-            synchronize(device)
-            timing_data.append(('special_gray_convert', time() - t))
+            with span('special_gray_convert', timing_data):
+                pages = special_gray_convert(
+                    torch.from_numpy(np.stack(arrs)).to(device))
+                mode = 'L'
+                synchronize(device)
 
         mask_dev, dev_imgs = decompose_masks(
             pages, [j.word_data for j in batch_jobs], dpi=batch_jobs[0].dpi,
@@ -536,9 +539,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             for job, mask in zip(batch_jobs, masks):
                 em = encode_mrc_mask(~mask, fmt=mask_fmt, embedded=True,
                                      timing_data=timing_data, debug=debug)
-                t = time()
-                builder.insert_raw_mask_page(job.page_idx, em)
-                timing_data.append(('page_image_insertion', time() - t))
+                with span('page_image_insertion', timing_data):
+                    builder.insert_raw_mask_page(job.page_idx, em)
             return
         # HQ pages keep full-resolution layers
         any_hq = any(j.hq for j in batch_jobs)
@@ -554,17 +556,16 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             fg_downsample=None if all_hq else fg_downsample,
             timing_data=timing_data, errors=errors, device=dev_layers,
             devices=devices)
-        t = time()
-        packed_np = pack_mask_bits(mask_dev).cpu().numpy()
-        h_m, w_m = int(mask_dev.shape[1]), int(mask_dev.shape[2])
-        if (mask_fmt == COMPRESSOR_JBIG2 and not jbig2_symbol_mode
-                and jbig2_bands <= 1):
-            # generic JBIG2 in one region consumes the packed rows
-            masks = [PackedMask(packed_np[i], w_m, h_m)
-                     for i in range(packed_np.shape[0])]
-        else:
-            masks = unpack_mask_bits(packed_np, w_m)
-        timing_data.append(('mask_fetch', time() - t))
+        with span('mask_fetch', timing_data):
+            packed_np = pack_mask_bits(mask_dev).cpu().numpy()
+            h_m, w_m = int(mask_dev.shape[1]), int(mask_dev.shape[2])
+            if (mask_fmt == COMPRESSOR_JBIG2 and not jbig2_symbol_mode
+                    and jbig2_bands <= 1):
+                # generic JBIG2 in one region consumes the packed rows
+                masks = [PackedMask(packed_np[i], w_m, h_m)
+                         for i in range(packed_np.shape[0])]
+            else:
+                masks = unpack_mask_bits(packed_np, w_m)
 
         hq_layers = {}
         if any_hq and not all_hq and (bg_downsample or fg_downsample):
@@ -592,8 +593,6 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
                 fg, bg = hq_layers.get(i, (fg_layers[i], bg_layers[i]))
             pending.append(pool.submit(encode_page, job, masks[i], fg, bg,
                                        mode, fg_qb.get(i), bg_qb.get(i)))
-        while len(pending) > max_pending:
-            drain_one(pending.pop(0))
 
     # a document of one batch goes in two halves, so the second half's
     # load and device work overlap the first half's host encode
@@ -610,6 +609,7 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
     stop_loading = threading.Event()
 
     def loader():
+        spans.bind(call_id)
         batch_jobs, batch_images, batch_key = [], [], None
         try:
             for job in jobs:
@@ -640,19 +640,23 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
         finally:
             batch_queue.put(None)
 
-    loader_thread = threading.Thread(target=loader, daemon=True)
+    loader_thread = threading.Thread(target=loader, name='loader',
+                                     daemon=True)
     loader_thread.start()
 
     processed = 0
     try:
         while True:
-            t = time()
-            item = batch_queue.get()
-            timing_data.append(('batch_wait', time() - t))
+            with span('batch_wait', timing_data):
+                item = batch_queue.get()
             if item is None:
                 break
             batch_jobs, batch_images = item
-            process_batch(batch_jobs, batch_images)
+            with span('process_batch'):
+                process_batch(batch_jobs, batch_images)
+            # back-pressure: bounds the fg/bg buffers the pool holds
+            while len(pending) > max_pending:
+                drain_one(pending.pop(0))
             processed += len(batch_jobs)
             reporting_page_count += len(batch_jobs)
             if report_every is not None \
@@ -774,182 +778,200 @@ def recode(from_pdf=None, from_imagestack=None, dpi=None, hocr_file=None,
     profile_dir: the span the JAX package traces with jax.profiler (the
     source's opening, pass 1 and pass 2) runs under torch.profiler, with
     the card's kernels when ``device`` is a GPU, and is written as one
-    Chrome trace, ``profile_dir/trace.json``.  The PDF is the same."""
+    Chrome trace, ``profile_dir/trace.json``.  The trace holds every
+    thread's spans (``utils/spans.py``): the main thread's, the page
+    loader's (``image_load``) and the encode pool's (``mask_jbig2``,
+    ``fg_jp2``, ``bg_jp2``).  The PDF is the same.
+
+    The call is the root span ``recode``; while a torch.profiler session
+    is open its spans also go to ``utils/spans.py``'s store."""
     if from_pdf is None and from_imagestack is None:
         raise ValueError('recode: from_pdf or from_imagestack is required')
-    home = resolve_device(device)
-    errors = set()
-    start_time = time()
+    with spans.call('recode') as root:
+        home = resolve_device(device)
+        errors = set()
 
-    # plain recode() callers get the CLI's per-codec default flags
-    if image_mode == IMAGE_MODE_MRC and (
-            bg_compression_flags is None or fg_compression_flags is None
-            or hq_bg_compression_flags is None
-            or hq_fg_compression_flags is None):
-        if mrc_image_format == COMPRESSOR_JPEG2000:
-            dflt = DEFAULT_COMPRESSION_FLAGS[jpeg2000_implementation]
+        # plain recode() callers get the CLI's per-codec default flags
+        if image_mode == IMAGE_MODE_MRC and (
+                bg_compression_flags is None or fg_compression_flags is None
+                or hq_bg_compression_flags is None
+                or hq_fg_compression_flags is None):
+            if mrc_image_format == COMPRESSOR_JPEG2000:
+                dflt = DEFAULT_COMPRESSION_FLAGS[jpeg2000_implementation]
+            else:
+                dflt = DEFAULT_JPEG_FLAGS
+            if bg_compression_flags is None:
+                bg_compression_flags = dflt[0].split(' ')
+            if fg_compression_flags is None:
+                fg_compression_flags = dflt[1].split(' ')
+            if hq_bg_compression_flags is None:
+                hq_bg_compression_flags = dflt[2].split(' ')
+            if hq_fg_compression_flags is None:
+                hq_fg_compression_flags = dflt[3].split(' ')
+
+        profiler = None
+        if profile_dir:
+            from torch.profiler import profile, ProfilerActivity
+            activities = [ProfilerActivity.CPU]
+            if home.type == 'cuda':
+                activities.append(ProfilerActivity.CUDA)
+            # every thread's spans: the loader's and the encode pool's too
+            profiler = profile(
+                activities=activities,
+                experimental_config=torch._C._profiler._ExperimentalConfig(
+                    profile_all_threads=True))
+            profiler.__enter__()
+
+        in_pdf = PdfReader(from_pdf) if from_pdf else None
+        image_files = (sorted(glob(from_imagestack)) if from_imagestack
+                       else None)
+
+        stop = stop_after
+        if stop is not None:
+            stop -= 1
+
+        reporter = Reporter(reporter)
+
+        skip_pages = list(skip_pages) if skip_pages else []
+        dpi_pages = None
+        if scandata_file is not None:
+            sd = Scandata(scandata_file)
+            skip_pages = sorted(set(skip_pages) | set(sd.skip_pages()))
+            dpi_pages = sd.dpi_per_page()
+            scandata_doc_dpi = sd.document_dpi()
+            if scandata_doc_dpi is not None:
+                dpi = scandata_doc_dpi
+
+        builder = DocumentBuilder(render_text_lines=render_text_lines)
+
+        if verbose:
+            print('Creating text only PDF')
+        t_pass1 = root.elapsed()
+        create_text_pages(builder, hocr_file, in_pdf=in_pdf,
+                          image_files=image_files, dpi=dpi,
+                          skip_pages=skip_pages, dpi_pages=dpi_pages,
+                          reporter=reporter, verbose=verbose, stop_after=stop,
+                          jpeg2000_implementation=jpeg2000_implementation,
+                          errors=errors)
+
+        hq = [False] * len(builder.pages)
+        if hq_pages:
+            for i in map(int, hq_pages.split(',')):
+                if i > 0:
+                    i -= 1
+                if abs(i) >= len(hq):
+                    # silently ignore out of range (recode.py:666-672)
+                    continue
+                hq[i] = True
+
+        t_pass2 = root.elapsed()
+        if verbose:
+            print('Converting with image mode: %s (pass 1 took %.2fs)'
+                  % (image_mode, t_pass2 - t_pass1))
+        if image_mode == IMAGE_MODE_MRC:
+            insert_images_mrc(
+                builder, hocr_file, in_pdf=in_pdf, image_files=image_files,
+                dpi=dpi, dpi_pages=dpi_pages,
+                bg_compression_flags=bg_compression_flags,
+                fg_compression_flags=fg_compression_flags,
+                skip_pages=skip_pages, img_dir=out_dir, jbig2=jbig2,
+                downsample=downsample, bg_downsample=bg_downsample,
+                fg_downsample=fg_downsample,
+                denoise_mask=denoise_mask, reporter=reporter, hq_pages=hq,
+                hq_bg_compression_flags=hq_bg_compression_flags,
+                hq_fg_compression_flags=hq_fg_compression_flags,
+                verbose=verbose, debug=debug, tmp_dir=tmp_dir,
+                report_every=report_every, stop_after=stop,
+                jpeg2000_implementation=jpeg2000_implementation,
+                mrc_image_format=mrc_image_format,
+                mask_compression=mask_compression, threads=threads,
+                batch_pages=batch_pages, exact_denoise=exact_denoise,
+                resume=resume, errors=errors, grayscale_pdf=grayscale_pdf,
+                force_1bit_output=force_1bit_output,
+                jbig2_symbol_mode=jbig2_symbol_mode, jbig2_bands=jbig2_bands,
+                device=device)
+        elif image_mode in (IMAGE_MODE_PASSTHROUGH, IMAGE_MODE_PIXMAP):
+            if in_pdf is None:
+                raise ValueError('recode: image modes 0 and 1 need from_pdf')
+            insert_images_legacy(builder, in_pdf, image_mode,
+                                 report_every=report_every, stop_after=stop)
+
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            profiler.export_chrome_trace(
+                os.path.join(profile_dir, 'trace.json'))
+
+        with span('pdf_write') as pdf:
+            builder.write_pdfa()
+            if scandata_file is not None:
+                builder.write_page_labels(
+                    sd.page_numbers(), errors=errors,
+                    ignore_invalid=ignore_invalid_pagenumbers)
+                builder.write_toc(sd.toc())
+
+            lang_if_any = (metadata_language[0] if metadata_language
+                           else None)
+            builder.write_basic_ua(language=lang_if_any)
+
+            extra_metadata = {}
+            for key, val in (('url', metadata_url),
+                             ('title', metadata_title),
+                             ('creator', metadata_creator),
+                             ('author', metadata_author),
+                             ('language', metadata_language),
+                             ('subject', metadata_subject),
+                             ('creatortool', metadata_creatortool)):
+                if val:
+                    extra_metadata[key] = val
+            from_docinfo = None
+            from_xmp = None
+            if in_pdf is not None:
+                # the source's CreationDate and XMP carry over
+                # (recode.py:982-996)
+                from_docinfo = {}
+                v = in_pdf.info().get('CreationDate')
+                if v is not None:
+                    from_docinfo['creationDate'] = v.decode('latin-1') \
+                        if isinstance(v, bytes) else str(v)
+                xmp = in_pdf.xmp_metadata()
+                if xmp:
+                    from_xmp = xmp.decode('utf-8', 'replace')
+            builder.write_metadata(extra_metadata=extra_metadata,
+                                   from_docinfo=from_docinfo,
+                                   from_xmp=from_xmp)
+            _stamp_producer(builder)
+
+            if verbose:
+                print('Saving PDF now (pass 2 + finalize took %.2fs)'
+                      % (root.elapsed() - t_pass2))
+            t = pdf.elapsed()
+            builder.save(out_pdf, deflate=True)
+            save_time_ms = int((pdf.elapsed() - t) * 1000)
+            if verbose:
+                print('PDF save took %.2fs' % (save_time_ms / 1000.0))
+        reporter.send({'time_to_save': {'time': save_time_ms}})
+
+        n_pages = max(len(builder.pages), 1)
+        print('Processed %d pages at %.2f seconds/page'
+              % (len(builder.pages), root.elapsed() / n_pages))
+
+        if from_pdf is not None:
+            oldsize = os.path.getsize(from_pdf)
         else:
-            dflt = DEFAULT_JPEG_FLAGS
-        if bg_compression_flags is None:
-            bg_compression_flags = dflt[0].split(' ')
-        if fg_compression_flags is None:
-            fg_compression_flags = dflt[1].split(' ')
-        if hq_bg_compression_flags is None:
-            hq_bg_compression_flags = dflt[2].split(' ')
-        if hq_fg_compression_flags is None:
-            hq_fg_compression_flags = dflt[3].split(' ')
+            oldsize = 0
+            skipped = 0
+            for idx, fname in enumerate(image_files):
+                if skip_pages and idx in skip_pages:
+                    skipped += 1
+                    continue
+                if stop_after is not None and (idx - skipped) > stop_after:
+                    break
+                oldsize += os.path.getsize(fname)
 
-    profiler = None
-    if profile_dir:
-        from torch.profiler import profile, ProfilerActivity
-        activities = [ProfilerActivity.CPU]
-        if home.type == 'cuda':
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.__enter__()
+        newsize = os.path.getsize(out_pdf)
+        compression_ratio = oldsize / newsize if newsize else 0.0
+        if verbose:
+            print('Compression ratio: %f' % compression_ratio)
 
-    in_pdf = PdfReader(from_pdf) if from_pdf else None
-    image_files = sorted(glob(from_imagestack)) if from_imagestack else None
-
-    stop = stop_after
-    if stop is not None:
-        stop -= 1
-
-    reporter = Reporter(reporter)
-
-    skip_pages = list(skip_pages) if skip_pages else []
-    dpi_pages = None
-    if scandata_file is not None:
-        sd = Scandata(scandata_file)
-        skip_pages = sorted(set(skip_pages) | set(sd.skip_pages()))
-        dpi_pages = sd.dpi_per_page()
-        scandata_doc_dpi = sd.document_dpi()
-        if scandata_doc_dpi is not None:
-            dpi = scandata_doc_dpi
-
-    builder = DocumentBuilder(render_text_lines=render_text_lines)
-
-    if verbose:
-        print('Creating text only PDF')
-    t_pass1 = time()
-    create_text_pages(builder, hocr_file, in_pdf=in_pdf,
-                      image_files=image_files, dpi=dpi,
-                      skip_pages=skip_pages, dpi_pages=dpi_pages,
-                      reporter=reporter, verbose=verbose, stop_after=stop,
-                      jpeg2000_implementation=jpeg2000_implementation,
-                      errors=errors)
-
-    hq = [False] * len(builder.pages)
-    if hq_pages:
-        for i in map(int, hq_pages.split(',')):
-            if i > 0:
-                i -= 1
-            if abs(i) >= len(hq):
-                continue   # silently ignore out of range (recode.py:666-672)
-            hq[i] = True
-
-    t_pass2 = time()
-    if verbose:
-        print('Converting with image mode: %s (pass 1 took %.2fs)'
-              % (image_mode, t_pass2 - t_pass1))
-    if image_mode == IMAGE_MODE_MRC:
-        insert_images_mrc(
-            builder, hocr_file, in_pdf=in_pdf, image_files=image_files,
-            dpi=dpi, dpi_pages=dpi_pages,
-            bg_compression_flags=bg_compression_flags,
-            fg_compression_flags=fg_compression_flags,
-            skip_pages=skip_pages, img_dir=out_dir, jbig2=jbig2,
-            downsample=downsample, bg_downsample=bg_downsample,
-            fg_downsample=fg_downsample,
-            denoise_mask=denoise_mask, reporter=reporter, hq_pages=hq,
-            hq_bg_compression_flags=hq_bg_compression_flags,
-            hq_fg_compression_flags=hq_fg_compression_flags,
-            verbose=verbose, debug=debug, tmp_dir=tmp_dir,
-            report_every=report_every, stop_after=stop,
-            jpeg2000_implementation=jpeg2000_implementation,
-            mrc_image_format=mrc_image_format,
-            mask_compression=mask_compression, threads=threads,
-            batch_pages=batch_pages, exact_denoise=exact_denoise,
-            resume=resume, errors=errors, grayscale_pdf=grayscale_pdf,
-            force_1bit_output=force_1bit_output,
-            jbig2_symbol_mode=jbig2_symbol_mode, jbig2_bands=jbig2_bands,
-            device=device)
-    elif image_mode in (IMAGE_MODE_PASSTHROUGH, IMAGE_MODE_PIXMAP):
-        if in_pdf is None:
-            raise ValueError('recode: image modes 0 and 1 need from_pdf')
-        insert_images_legacy(builder, in_pdf, image_mode,
-                             report_every=report_every, stop_after=stop)
-
-    if profiler is not None:
-        profiler.__exit__(None, None, None)
-        os.makedirs(profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(profile_dir, 'trace.json'))
-
-    builder.write_pdfa()
-    if scandata_file is not None:
-        builder.write_page_labels(sd.page_numbers(), errors=errors,
-                                  ignore_invalid=ignore_invalid_pagenumbers)
-        builder.write_toc(sd.toc())
-
-    lang_if_any = metadata_language[0] if metadata_language else None
-    builder.write_basic_ua(language=lang_if_any)
-
-    extra_metadata = {}
-    for key, val in (('url', metadata_url), ('title', metadata_title),
-                     ('creator', metadata_creator),
-                     ('author', metadata_author),
-                     ('language', metadata_language),
-                     ('subject', metadata_subject),
-                     ('creatortool', metadata_creatortool)):
-        if val:
-            extra_metadata[key] = val
-    from_docinfo = None
-    from_xmp = None
-    if in_pdf is not None:
-        # the source's CreationDate and XMP carry over (recode.py:982-996)
-        from_docinfo = {}
-        v = in_pdf.info().get('CreationDate')
-        if v is not None:
-            from_docinfo['creationDate'] = v.decode('latin-1') \
-                if isinstance(v, bytes) else str(v)
-        xmp = in_pdf.xmp_metadata()
-        if xmp:
-            from_xmp = xmp.decode('utf-8', 'replace')
-    builder.write_metadata(extra_metadata=extra_metadata,
-                           from_docinfo=from_docinfo, from_xmp=from_xmp)
-    _stamp_producer(builder)
-
-    if verbose:
-        print('Saving PDF now (pass 2 + finalize took %.2fs)'
-              % (time() - t_pass2))
-    t = time()
-    builder.save(out_pdf, deflate=True)
-    save_time_ms = int((time() - t) * 1000)
-    if verbose:
-        print('PDF save took %.2fs' % (save_time_ms / 1000.0))
-    reporter.send({'time_to_save': {'time': save_time_ms}})
-
-    end_time = time()
-    n_pages = max(len(builder.pages), 1)
-    print('Processed %d pages at %.2f seconds/page'
-          % (len(builder.pages), (end_time - start_time) / n_pages))
-
-    if from_pdf is not None:
-        oldsize = os.path.getsize(from_pdf)
-    else:
-        oldsize = 0
-        skipped = 0
-        for idx, fname in enumerate(image_files):
-            if skip_pages and idx in skip_pages:
-                skipped += 1
-                continue
-            if stop_after is not None and (idx - skipped) > stop_after:
-                break
-            oldsize += os.path.getsize(fname)
-
-    newsize = os.path.getsize(out_pdf)
-    compression_ratio = oldsize / newsize if newsize else 0.0
-    if verbose:
-        print('Compression ratio: %f' % compression_ratio)
-
-    return {'errors': errors, 'compression_ratio': compression_ratio}
+        return {'errors': errors, 'compression_ratio': compression_ratio}
