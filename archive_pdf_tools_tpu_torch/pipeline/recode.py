@@ -17,7 +17,9 @@ source PDF's images through or re-encode its rendered pages; with
 this engine (``PRODUCER``) in Info and XMP.
 """
 
+import collections
 import io
+import itertools
 import json
 import os
 import queue
@@ -33,9 +35,8 @@ import torch
 from PIL import Image
 
 from ..codecs.jp2tpu import transform_jp2_batch_async
-from ..codecs.jpeg2000 import (decode_jpeg2000, get_jpeg2000_info,
-                               _pillow_kwargs, DEFAULT_COMPRESSION_FLAGS,
-                               DEFAULT_JPEG_FLAGS)
+from ..codecs.jpeg2000 import (get_jpeg2000_info, _pillow_kwargs,
+                               DEFAULT_COMPRESSION_FLAGS, DEFAULT_JPEG_FLAGS)
 from ..codecs.mrc_encode import (encode_mrc_images, encode_mrc_mask,
                                  EncodedLayer, EncodedMask, PackedMask)
 from ..const import (
@@ -52,6 +53,7 @@ from ..parallel.mesh import default_devices
 from ..pdf.builder import DocumentBuilder
 from ..pdf.reader import PdfReader
 from ..pdf.writer import Name
+from ..pipeline import pageload
 from ..pipeline.timing import get_timing_summary, Reporter
 from ..utils import spans
 from ..utils.backend import (pack_mask_bits, resolve_device, synchronize,
@@ -255,39 +257,86 @@ def _load_page_image(in_pdf, image_files, src_idx, downsample,
                      jpeg2000_implementation, threads, debug, timing_data):
     """Image load policy (``recode.py:318-372``): a source PDF page's one
     image decoded, or a multi-image page rendered whole; an image-stack
-    file read.  ``--downsample`` reduces JPEG2000 files in the decoder
-    and shrinks other pages with a LANCZOS thumbnail on the host."""
+    file read (``pageload.decode_page``).  ``--downsample`` reduces
+    JPEG2000 files in the decoder and shrinks other pages with a LANCZOS
+    thumbnail on the host."""
+    if in_pdf is None:
+        return _decode_timed(image_files[src_idx], downsample,
+                             jpeg2000_implementation, threads, debug,
+                             timing_data)
     with span('image_load', timing_data):
-        downsampled = False
-        if in_pdf is not None:
-            imgs = in_pdf.page_images(src_idx)
-            if not imgs:
-                raise ValueError('page %d has no images' % src_idx)
-            if len(imgs) == 1:
-                _, _, stream = imgs[0]
-                image = _decode_pdf_image(in_pdf, stream)
-            else:
-                image = _render_page_composite(in_pdf, src_idx)
+        imgs = in_pdf.page_images(src_idx)
+        if not imgs:
+            raise ValueError('page %d has no images' % src_idx)
+        if len(imgs) == 1:
+            _, _, stream = imgs[0]
+            image = pageload.flatten(_decode_pdf_image(in_pdf, stream))
         else:
-            imgfile = image_files[src_idx]
-            if imgfile.endswith(('.jp2', '.jpx')):
-                image = decode_jpeg2000(imgfile, reduce_=downsample,
-                                        impl=jpeg2000_implementation,
-                                        threads=threads, debug=debug)
-                downsampled = bool(downsample)
-            else:
-                image = Image.open(imgfile)
-                image.load()
-            if image.mode == 'RGBA':
-                image = image.convert('RGB')
-            elif image.mode == 'LA':
-                image = image.convert('L')
+            image = pageload.flatten(_render_page_composite(in_pdf,
+                                                            src_idx))
 
-    if downsample is not None and not downsampled:
+    if downsample is not None:
         w, h = image.size
         image.thumbnail((w / downsample, h / downsample),
                         resample=Image.LANCZOS, reducing_gap=None)
     return image
+
+
+def _decode_timed(path, downsample, jpeg2000_implementation, threads, debug,
+                  timing_data):
+    """An image-stack page decoded in an ``image_load`` span."""
+    with span('image_load', timing_data):
+        return pageload.decode_page(path, downsample,
+                                    jpeg2000_implementation, threads, debug)
+
+
+def _pages_ahead(paths, downsample, jpeg2000_implementation, threads, debug,
+                 timing_data, call_id):
+    """The image-stack pages ``paths`` decoded ahead of the loader and
+    yielded in page order, whatever order their decodes end in.
+
+    A JPEG2000 page decodes in the process's worker processes
+    (``pageload.WORKERS``), any other page on this call's decode threads
+    (``decode_<n>``, each bound to the call), with at most twice
+    ``pageload.decode_width()`` pages in flight.  A decode thread times
+    its page in an ``image_load`` span; a worker process times its own,
+    and its ``image_load`` key, and while tracing its record (thread
+    ``decode-proc-<pid>``), are added here.  The wait for the next page in
+    order is the span ``page_fetch``.  A decode's exception is raised
+    here.  Closing the generator, or an exception, cancels the decodes
+    not yet started and waits for the decode threads."""
+    width = pageload.decode_width()
+    decoders = ThreadPoolExecutor(max_workers=width,
+                                  thread_name_prefix='decode',
+                                  initializer=spans.bind, initargs=(call_id,))
+    args = (downsample, jpeg2000_implementation, threads, debug)
+    in_flight = collections.deque()
+    paths = iter(paths)
+    try:
+        while True:
+            for path in itertools.islice(paths, 2 * width - len(in_flight)):
+                if pageload.in_process(path):
+                    fut = pageload.WORKERS.submit(pageload.decode_packed,
+                                                  path, *args)
+                else:
+                    fut = decoders.submit(_decode_timed, path, *args,
+                                          timing_data)
+                in_flight.append(fut)
+            if not in_flight:
+                return
+            with span('page_fetch'):
+                page = in_flight.popleft().result()
+            if isinstance(page, tuple):
+                mode, size, data, start, end, cpu, pid = page
+                page = Image.frombytes(mode, size, data)
+                timing_data.append(('image_load', (end - start) / 1e9))
+                spans.record('image_load', 'decode-proc-%d' % pid, pid,
+                             start, end, cpu)
+            yield page
+    finally:
+        for fut in in_flight:
+            fut.cancel()
+        decoders.shutdown(wait=True, cancel_futures=True)
 
 
 class _TimingSink:
@@ -611,15 +660,25 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
     def loader():
         spans.bind(call_id)
         batch_jobs, batch_images, batch_key = [], [], None
+        # an image stack's pages decode ahead of this thread; a source
+        # PDF's pages decode here
+        pages = None
+        if in_pdf is None:
+            pages = _pages_ahead(
+                (image_files[job.src_idx if image_files else job.page_idx]
+                 for job in jobs), downsample, jpeg2000_implementation,
+                threads, debug, timing_data, call_id)
         try:
             for job in jobs:
                 if stop_loading.is_set():
                     return
-                image = _load_page_image(
-                    in_pdf, image_files,
-                    job.src_idx if image_files else job.page_idx,
-                    downsample, jpeg2000_implementation, threads, debug,
-                    timing_data)
+                if pages is not None:
+                    image = next(pages)
+                else:
+                    image = _load_page_image(in_pdf, None, job.page_idx,
+                                             downsample,
+                                             jpeg2000_implementation,
+                                             threads, debug, timing_data)
                 key = (image.size,
                        image.mode if image.mode in ('1', 'L', 'RGB')
                        else 'RGB', job.dpi)
@@ -638,6 +697,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
         except BaseException as exc:  # surfaced in the main thread
             load_error.append(exc)
         finally:
+            if pages is not None:
+                pages.close()
             batch_queue.put(None)
 
     loader_thread = threading.Thread(target=loader, name='loader',

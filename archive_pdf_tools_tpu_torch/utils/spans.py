@@ -23,6 +23,8 @@ on, a span also
   to, its start and end on ``perf_counter_ns``, and the thread's CPU
   time (``time.thread_time_ns``) spent in it.
 
+``record`` stores a span that another process timed.
+
 While tracing is off a span costs a clock pair, one flag read and the
 sink's append.  The store holds at most ``CAP`` records and counts those
 dropped past it; whoever traced reads it (``collected()``) and empties
@@ -86,6 +88,16 @@ def bind(call_id):
     """Bind this thread to a call: a loader or pool thread's first act,
     with the id its starting thread read."""
     _local.call = call_id
+
+
+def record(name, thread, thread_id, start_ns, end_ns, cpu_ns):
+    """Store, while tracing is on, a span timed outside this process (a
+    decode in a worker process, on its ``perf_counter_ns``, which is
+    CLOCK_MONOTONIC as this process's) under this thread's call, with the
+    ``thread`` name and id given and no parent."""
+    if _profiler._is_profiler_enabled:
+        _append(Record(next(_ids), name, None, thread, thread_id,
+                       current_call(), start_ns, end_ns, cpu_ns))
 
 
 def _append(rec):

@@ -1,7 +1,8 @@
 """The port's span helper (``utils/spans.py``) and the spans of its
-``recode()``: nesting, the call id across the loader and the encode
-pool, nothing recorded while tracing is off, every thread's spans in a
-``--profile`` trace, and the timing keys unchanged."""
+``recode()``: nesting, the call id across the loader, the decode
+threads and the encode pool, nothing recorded while tracing is off,
+every thread's spans in a ``--profile`` trace, and the timing keys
+unchanged."""
 
 import collections
 import json
@@ -225,7 +226,11 @@ def test_store_holds_every_threads_spans(traced):
     for r in recs:
         by_name[r.name].add(r.thread)
         assert 0 <= r.cpu_ns <= _wall(r)
-    assert by_name['image_load'] == {'loader'}
+    # the page decodes run ahead of the loader, on decode threads; the
+    # loader waits for each page in order
+    assert by_name['image_load'] and all(t.startswith('decode_')
+                                         for t in by_name['image_load'])
+    assert by_name['page_fetch'] == {'loader'}
     for name in ENCODE_SPANS:
         assert by_name[name] and all(t.startswith('encode')
                                      for t in by_name[name])
@@ -290,6 +295,9 @@ def test_profile_dir_trace_holds_every_thread(tmp_path):
     main = tids['batch_wait']
     assert len(main) == 1
     assert tids['image_load'] and not tids['image_load'] & main
+    # the loader's waits for the decode threads, on its own thread
+    assert len(tids['page_fetch']) == 1
+    assert not tids['page_fetch'] & (main | tids['image_load'])
     for name in ENCODE_SPANS:
         assert tids[name] and not tids[name] & main
-        assert not tids[name] & tids['image_load']
+        assert not tids[name] & (tids['image_load'] | tids['page_fetch'])
