@@ -20,7 +20,14 @@ verbatim copy of its jax-free parts, in the source's order:
   ``encode_jp2_from_qbands`` (``:1924-1940``).
 
 The only edits: the library is built into the port's ``build/``
-(``_SO_PATH``), by the port's copy of ``utils/nativebuild``.
+(``_SO_PATH``), by the port's copy of ``utils/nativebuild``; Tier-1's
+work has spans (``utils/spans.py``): ``t1_band`` around each band's
+native call in ``_t1_all``, on the band threads, which take the recode
+call of the thread that starts them, and ``t1_rescue`` around
+``_allocate_rate``'s re-encode of starved blocks.  The spans' module is
+imported where it is used: the page decode's worker processes import
+this module (``jpeg2000.impl_available`` under ``-J tpu``), and they
+must not import torch.
 The device side (the transform, the pack requantisation on the device
 and the batch API) is the port's ``codecs/jp2tpu.py``.
 """
@@ -400,18 +407,21 @@ def _allocate_rate(blocks, target_bytes, lib, workers, bands=None):
             starved.sort(key=tail_slope, reverse=True)
             starved = starved[:kcap]
         import time as _t
+        from ..utils import spans
         _r0 = _t.time()
-        if bands is not None:
-            band_of = {id(cb): band for band in bands
-                       for cb in band.blocks}
-            by_band = {}
-            for cb in starved:
-                band = band_of[id(cb)]
-                by_band.setdefault(id(band), (band, set()))[1].add(id(cb))
-            for band, ids in by_band.values():
-                _encode_band_blocks(lib, band, only=ids)
-        else:
-            _encode_blocks(starved, lib, workers, caps=None)
+        with spans.span('t1_rescue'):
+            if bands is not None:
+                band_of = {id(cb): band for band in bands
+                           for cb in band.blocks}
+                by_band = {}
+                for cb in starved:
+                    band = band_of[id(cb)]
+                    by_band.setdefault(id(band),
+                                       (band, set()))[1].add(id(cb))
+                for band, ids in by_band.values():
+                    _encode_band_blocks(lib, band, only=ids)
+            else:
+                _encode_blocks(starved, lib, workers, caps=None)
         _stat('rescue', _t.time() - _r0, len(starved))
     _final_encode(blocks, lib, workers)
 
@@ -782,16 +792,21 @@ def _t1_all(bands, lib, workers, target_bytes=None):
                 caps[id(cb)] = max(
                     floor, 4 * target_bytes * cb.arr.size // total_px)
     import time as _t
+    from ..utils import spans
     _i0 = _t.time()
 
     def enc(band):
-        _encode_band_blocks(lib, band, caps,
-                            max_passes=pass_caps.get(id(band), -1))
+        with spans.span('t1_band'):
+            _encode_band_blocks(lib, band, caps,
+                                max_passes=pass_caps.get(id(band), -1))
 
     if workers > 1 and len(bands) > 1:
         # multi-core hosts: band-level calls release the GIL for their
         # whole duration, so a thread per band parallelizes in C++
-        with ThreadPoolExecutor(max_workers=workers) as pool:
+        with ThreadPoolExecutor(max_workers=workers,
+                                thread_name_prefix='t1_band',
+                                initializer=spans.bind,
+                                initargs=(spans.current_call(),)) as pool:
             list(pool.map(enc, bands))
     else:
         for band in bands:

@@ -166,6 +166,25 @@ def test_worker_process_holds_no_torch(tmp_path):
         assert 'torch' not in mods
 
 
+def test_tpu_decode_worker_holds_no_torch(tmp_path):
+    """Under ``-J tpu`` a worker's decode checks the coder
+    (``jpeg2000.impl_available``), which imports ``codecs/jp2host.py``:
+    that module, with its Tier-1 spans, must not bring torch into the
+    worker."""
+    path = _save(_pixels('RGB'), str(tmp_path / 'p.jp2'))
+    host = pageload.__name__.replace('pipeline.pageload', 'codecs.jp2host')
+    probe = ("(__import__('%s', fromlist=['decode_packed'])"
+             ".decode_packed(%r, None, 'tpu', None, False),"
+             " sorted(__import__('sys').modules))" % (pageload.__name__, path))
+    futs = [pageload.WORKERS.submit(eval, probe)
+            for _ in range(2 * pageload.decode_width())]
+    for fut in futs:
+        page, mods = fut.result(120)
+        assert page[:2] == ('RGB', (W, H)) and page[-1] != os.getpid()
+        assert host in mods
+        assert 'torch' not in mods
+
+
 def test_workers_start_anew_after_one_dies(tmp_path):
     path = _save(_pixels('L'), str(tmp_path / 'p.jp2'))
     args = (pageload.decode_packed, path, None, 'pillow', None, False)

@@ -6,6 +6,7 @@ unchanged."""
 
 import collections
 import json
+import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -280,6 +281,45 @@ def test_timing_keys_unchanged(traced):
     for names in by_thread.values():
         it = iter(traced['keys'])
         assert all(n in it for n in names)   # a subsequence of the sink
+
+
+def test_tier1_band_spans_on_an_rgb_jtpu_page(tmp_path, monkeypatch):
+    """Under a profiler session an RGB ``-J tpu`` page stores a
+    ``t1_band`` record for each band's Tier-1 call, on the band threads
+    (the encode thread where the coder runs its bands in turn), bound to
+    the recode call, and ``t1_rescue`` only inside a layer's encode; the
+    bytes equal an untraced run's."""
+    monkeypatch.setenv('SOURCE_DATE_EPOCH', '1700000000')
+    img, wds = render_book_page(320, 416, seed=3, noise=8, rgb=True)
+    Image.fromarray(img).save(str(tmp_path / 'page_0000.png'))
+    hocr = tmp_path / 'book.hocr'
+    hocr.write_text(HOCR_TEMPLATE % words_to_hocr_page(wds, 320, 416,
+                                                       dpi=100),
+                    encoding='utf-8')
+    kw = dict(from_imagestack=str(tmp_path / 'page_*.png'),
+              hocr_file=str(hocr), dpi=100, jbig2=True, bg_downsample=3,
+              jpeg2000_implementation='tpu', device='cpu')
+    port_recode.recode(out_pdf=str(tmp_path / 'off.pdf'), **kw)
+    assert spans.collected() == []
+    with _cpu_profile():
+        port_recode.recode(out_pdf=str(tmp_path / 'on.pdf'), **kw)
+    recs = spans.collected()
+    root, = [r for r in recs if r.name == 'recode']
+    bands = [r for r in recs if r.name == 't1_band']
+    # three components of the fg (416x320, 5 levels) and of the bg
+    # (139x107, 4 levels): 3 * (16 + 13) band calls
+    assert len(bands) == 87
+    assert all(r.call == root.call and 0 <= r.cpu_ns <= _wall(r)
+               for r in bands)
+    band_pool = (os.cpu_count() or 1) > 1
+    assert all(r.thread.startswith('t1_band' if band_pool else 'encode')
+               for r in bands)
+    by_id = {r.id: r for r in recs}
+    for r in recs:
+        if r.name == 't1_rescue':
+            assert by_id[r.parent].name in ('fg_jp2', 'bg_jp2')
+    assert (tmp_path / 'off.pdf').read_bytes() == \
+        (tmp_path / 'on.pdf').read_bytes()
 
 
 def test_profile_dir_trace_holds_every_thread(tmp_path):
