@@ -26,10 +26,11 @@ from PIL import Image
 
 from ..const import (COMPRESSOR_JPEG, COMPRESSOR_JPEG2000, COMPRESSOR_JBIG2,
                      COMPRESSOR_CCITT, JPEG2000_IMPL_PILLOW)
-from ..utils.spans import span
+from ..utils.spans import record, span
 from . import jbig2 as jbig2_codec
 from . import ccitt as ccitt_codec
 from . import jpeg as jpeg_codec
+from . import pillow_jp2
 from .jpeg2000 import encode_jpeg2000
 
 EncodedMask = namedtuple('EncodedMask', 'data fmt width height decode')
@@ -114,8 +115,13 @@ def encode_mrc_img(np_img, img_compression_flags, imgtype=None,
                    jpeg2000_implementation=JPEG2000_IMPL_PILLOW,
                    mrc_image_format=COMPRESSOR_JPEG2000,
                    tmp_dir=None, threads=None, timing_data=None,
-                   debug=False, jp2_qbands=None, device=None):
+                   debug=False, jp2_qbands=None, device=None,
+                   encoders=None):
     """fg/bg layer -> EncodedLayer (``mrc.py:523-580``).
+
+    encoders: worker processes (``pipeline/pageload.py`` ``ENCODERS``)
+    that encode a ``-J pillow`` JPEG2000 layer while this thread waits
+    off the interpreter lock; None encodes it on this thread.
 
     jp2_qbands: optional (page_qbands, meta) from
     jp2tpu.transform_jp2_batch — the '-J tpu' batched path, where the
@@ -141,7 +147,7 @@ def encode_mrc_img(np_img, img_compression_flags, imgtype=None,
             gray = len(np_img.shape) == 2
             h, w = (int(s) for s in np_img.shape[:2])
             img = None
-            if jpeg2000_implementation != 'tpu' \
+            if jpeg2000_implementation not in ('tpu', JPEG2000_IMPL_PILLOW) \
                     or mrc_image_format == COMPRESSOR_JPEG:
                 img = Image.fromarray(np.asarray(np_img))
 
@@ -171,11 +177,15 @@ def encode_mrc_img(np_img, img_compression_flags, imgtype=None,
                                           levels=int(kw.get('levels', 5)),
                                           workers=threads, device=device)
             elif jpeg2000_implementation == JPEG2000_IMPL_PILLOW:
-                buf = io.BytesIO()
-                from .jpeg2000 import _pillow_kwargs
-                img.save(buf, format='JPEG2000',
-                         **_pillow_kwargs(img_compression_flags[0]))
-                data = buf.getvalue()
+                flags = img_compression_flags[0]
+                if encoders is None:
+                    data = pillow_jp2.encode(np_img, flags)[0]
+                else:
+                    data, start, end, cpu, pid = encoders.submit(
+                        pillow_jp2.encode, np.asarray(np_img),
+                        flags).result()
+                    record('jp2_pillow', 'encode-proc-%d' % pid, pid,
+                           start, end, cpu)
             else:
                 fd, out_path = mkstemp(prefix=imgtype, suffix='.jp2',
                                        dir=tmp_dir)
@@ -213,7 +223,8 @@ def encode_mrc_images(mask, fg, bg, bg_compression_flags=None,
                       mrc_image_format=COMPRESSOR_JPEG2000,
                       tmp_dir=None, threads=None, timing_data=None,
                       debug=False, jbig2_symbol_mode=False, jbig2_bands=1,
-                      fg_qbands=None, bg_qbands=None, device=None):
+                      fg_qbands=None, bg_qbands=None, device=None,
+                      encoders=None):
     """All three MRC components -> (EncodedMask, EncodedLayer, EncodedLayer).
     In-memory analog of ``mrc.py:633-673``.  fg_qbands/bg_qbands carry
     pre-transformed '-J tpu' coefficients (one batched device dispatch
@@ -227,11 +238,11 @@ def encode_mrc_images(mask, fg, bg, bg_compression_flags=None,
         jpeg2000_implementation=jpeg2000_implementation,
         mrc_image_format=mrc_image_format, tmp_dir=tmp_dir,
         threads=threads, timing_data=timing_data, debug=debug,
-        jp2_qbands=fg_qbands, device=device)
+        jp2_qbands=fg_qbands, device=device, encoders=encoders)
     eb = encode_mrc_background(
         bg, bg_compression_flags,
         jpeg2000_implementation=jpeg2000_implementation,
         mrc_image_format=mrc_image_format, tmp_dir=tmp_dir,
         threads=threads, timing_data=timing_data, debug=debug,
-        jp2_qbands=bg_qbands, device=device)
+        jp2_qbands=bg_qbands, device=device, encoders=encoders)
     return em, eb, ef

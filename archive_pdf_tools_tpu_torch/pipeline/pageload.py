@@ -1,4 +1,5 @@
-"""The decode of an image-stack page, and the worker processes that run it.
+"""The decode of an image-stack page, and the worker processes that run
+it and Pillow's layer encode.
 
 ``decode_page`` is the image-stack branch of ``recode``'s page load: a
 JPEG2000 file decoded (at a reduced resolution under ``--downsample``),
@@ -13,12 +14,19 @@ of the process that drives the card; every other format's decoder
 mostly releases the lock, so such a page decodes on a thread and is not
 copied between processes.
 
-This module imports nothing of torch: a worker process imports it,
-Pillow and the port's ``const`` and ``codecs/jpeg2000.py`` only.  The
-workers start by ``spawn`` (the parent holds a CUDA context and
-threads, which ``fork`` would copy), so like every ``spawn`` child they
-import the parent's main script under ``__mp_main__``: a script that
-calls ``recode`` runs its work under ``if __name__ == '__main__'``.
+``recode``'s encode pool sends each ``-J pillow`` JPEG2000 layer to the
+encode workers (``ENCODERS``, ``codecs/pillow_jp2.py``), a pool of their
+own: in one queue the decodes ahead would wait behind two-second
+encodes, or the encodes behind the decodes.
+
+This module imports nothing of torch: a decode worker imports it,
+Pillow and the port's ``const`` and ``codecs/jpeg2000.py`` only, and an
+encode worker ``codecs/pillow_jp2.py``, numpy, Pillow and
+``codecs/jpeg2000.py``.  The workers start by ``spawn`` (the parent
+holds a CUDA context and threads, which ``fork`` would copy), so like
+every ``spawn`` child they import the parent's main script under
+``__mp_main__``: a script that calls ``recode`` on JPEG2000 pages or
+with ``-J pillow`` runs its work under ``if __name__ == '__main__'``.
 """
 
 import atexit
@@ -84,6 +92,14 @@ def decode_width():
     return min(4, max(1, cores // 2))
 
 
+def encode_width():
+    """Encode workers (``recode``'s encode pool threads, and the
+    processes that run their ``-J pillow`` layers): the host's cores, at
+    least 2 and at most 4.  A ``threads=`` that widens the pool leaves
+    the processes at this width."""
+    return min(4, max(2, os.cpu_count() or 4))
+
+
 def decode_packed(path, downsample, impl, threads, debug):
     """``decode_page`` in a worker process.  Returns the page as
     ``(mode, size, pixel bytes)`` for ``Image.frombytes``, then the
@@ -103,12 +119,13 @@ def decode_packed(path, downsample, impl, threads, debug):
 
 
 class Workers:
-    """The process's decode worker processes: started on the first
+    """A pool of ``width()`` worker processes: started on the first
     submit and kept across ``recode()`` calls (starting them costs about
     a second, once), started anew on the submit after one died (the
     executor is then broken), shut down at interpreter exit."""
 
-    def __init__(self):
+    def __init__(self, width):
+        self._width = width
         self._lock = threading.Lock()
         self._pool = None
 
@@ -120,7 +137,7 @@ class Workers:
                 except BrokenProcessPool:
                     self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = ProcessPoolExecutor(
-                decode_width(),
+                self._width(),
                 mp_context=multiprocessing.get_context('spawn'))
             return self._pool.submit(fn, *args)
 
@@ -131,5 +148,7 @@ class Workers:
             pool.shutdown(wait=True, cancel_futures=True)
 
 
-WORKERS = Workers()
+WORKERS = Workers(decode_width)
+ENCODERS = Workers(encode_width)
 atexit.register(WORKERS.shutdown)
+atexit.register(ENCODERS.shutdown)

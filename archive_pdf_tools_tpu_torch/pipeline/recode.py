@@ -489,7 +489,7 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
     if threads:
         n_workers = max(1, threads)
     else:
-        n_workers = min(4, max(2, os.cpu_count() or 4))
+        n_workers = pageload.encode_width()
     # the loader and the pool's threads report their spans to this call
     call_id = spans.current_call()
     pool = ThreadPoolExecutor(max_workers=n_workers,
@@ -500,8 +500,10 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
 
     def encode_page(job, mask_np, fg_np, bg_np, image_mode, fg_qbands=None,
                     bg_qbands=None):
-        """Encode one page's components on the pool.  The builder
-        insertion happens in the page-ordered drain, not here."""
+        """Encode one page's components on the pool, a ``-J pillow``
+        JPEG2000 layer in an encode worker process
+        (``pageload.ENCODERS``).  The builder insertion happens in the
+        page-ordered drain, not here."""
         bgf = hq_bg_compression_flags if job.hq else bg_compression_flags
         fgf = hq_fg_compression_flags if job.hq else fg_compression_flags
         em, eb, ef = encode_mrc_images(
@@ -512,7 +514,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             mrc_image_format=mrc_image_format, tmp_dir=tmp_dir,
             threads=threads, timing_data=timing_data, debug=debug,
             jbig2_symbol_mode=jbig2_symbol_mode, jbig2_bands=jbig2_bands,
-            fg_qbands=fg_qbands, bg_qbands=bg_qbands, device=device)
+            fg_qbands=fg_qbands, bg_qbands=bg_qbands, device=device,
+            encoders=pageload.ENCODERS)
         if img_dir is not None:
             _write_artifacts(img_dir, job, image_mode, em, eb, ef)
         return job, image_mode == 'L', em, eb, ef

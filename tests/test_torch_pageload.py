@@ -186,19 +186,23 @@ def test_tpu_decode_worker_holds_no_torch(tmp_path):
 
 
 def test_workers_start_anew_after_one_dies(tmp_path):
+    """The work of a worker killed while it runs raises BrokenProcessPool
+    (an idle worker's death may be seen before the next submit, which
+    then starts the new pool at once); the next decode starts anew."""
     path = _save(_pixels('L'), str(tmp_path / 'p.jp2'))
     args = (pageload.decode_packed, path, None, 'pillow', None, False)
-    pid = pageload.WORKERS.submit(*args).result(120)[-1]
-    os.kill(pid, signal.SIGKILL)
+    pageload.WORKERS.submit(*args).result(120)
+    pidfile = tmp_path / 'pid'
+    fut = pageload.WORKERS.submit(
+        eval, "open(%r, 'w').write(str(__import__('os').getpid()))"
+              " and __import__('time').sleep(120)" % str(pidfile))
     deadline = time.time() + 60
-    while time.time() < deadline:
-        try:
-            pageload.WORKERS.submit(*args).result(120)
-        except BrokenProcessPool:
-            break
-        time.sleep(0.05)
-    else:
-        pytest.fail('the pool did not break')
+    while not (pidfile.exists() and pidfile.read_text().isdigit()):
+        assert time.time() < deadline and not fut.done()
+        time.sleep(0.01)
+    os.kill(int(pidfile.read_text()), signal.SIGKILL)
+    with pytest.raises(BrokenProcessPool):
+        fut.result(120)
     mode, size, data = pageload.WORKERS.submit(*args).result(120)[:3]
     assert (mode, size, len(data)) == ('L', (W, H), W * H)
 
