@@ -27,7 +27,13 @@ call of the thread that starts them, and ``t1_rescue`` around
 ``_allocate_rate``'s re-encode of starved blocks.  The spans' module is
 imported where it is used: the page decode's worker processes import
 this module (``jpeg2000.impl_available`` under ``-J tpu``), and they
-must not import torch.
+must not import torch.  The band threads and their default width come
+from ``utils/workers.py``.  Of the source's environment switches only
+``APT_T1_STATS`` is left: the other ``APT_T1_*`` are constants at their
+defaults (``APT_T1_CAPS`` is its ``auto`` policy), and Tier-2's header
+is the native one (``APT_T2_IMPL``), the Python one being
+``_packet_header_py``.  The per-block rescue (``_encode_blocks``), which
+no caller reached, is gone.
 The device side (the transform, the pack requantisation on the device
 and the batch API) is the port's ``codecs/jp2tpu.py``.
 """
@@ -38,9 +44,9 @@ import os
 import struct
 import threading
 
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
+
+from ..utils.workers import bound_threads, tier1_width
 
 # APT_T1_STATS=1: accumulate per-encode Tier-1 work counters (initial/
 # rescue/final phase wall time, block and byte counts) in T1_STATS for
@@ -367,7 +373,16 @@ def _pcrd_choose(blocks, target_bytes):
         blocks[bi].chosen = int(chosen[bi])
 
 
-def _allocate_rate(blocks, target_bytes, lib, workers, bands=None):
+# the starved-block rescue's slack and rounds (_allocate_rate), and
+# Tier-1's work caps (_t1_all)
+_STARVE_SLACK = 3
+_MAX_RESCUE_ROUNDS = 3
+_CAP_FLOOR = 512
+_FINE_PASSES = 4
+_COARSE_PLANES = 7
+
+
+def _allocate_rate(blocks, target_bytes, lib, bands):
     """PCRD with starved-block recovery: blocks are T1-coded under a
     work cap (_t1_all), so when the threshold search wants EVERY
     recorded pass of a cap-cut block, its true optimum may lie beyond
@@ -375,11 +390,8 @@ def _allocate_rate(blocks, target_bytes, lib, workers, bands=None):
     Converges to the uncapped allocation while coding a fraction of
     the passes (at ratio 750 the cap floor saves ~10x the pass work).
 
-    bands: the _Band list owning `blocks`; when given, rescue
-    re-encodes ride the band-batched native entry (skip-capped) instead
-    of per-block ctypes calls."""
-    slack = int(os.environ.get('APT_T1_STARVE_SLACK', '3'))
-    max_rounds = int(os.environ.get('APT_T1_MAX_RESCUE_ROUNDS', '3'))
+    bands: the _Band list owning `blocks`; rescue re-encodes ride the
+    band-batched native entry (skip-capped)."""
     kcap = max(48, len(blocks) // 32)
 
     def tail_slope(cb):
@@ -388,16 +400,16 @@ def _allocate_rate(blocks, target_bytes, lib, workers, bands=None):
         return (cb.dists[-1] - cb.dists[-2]) * cb.weight / \
             max(1, int(cb.rates[-1]) - int(cb.rates[-2]))
 
-    for _round in range(max_rounds + 1):
+    for _round in range(_MAX_RESCUE_ROUNDS + 1):
         _pcrd_choose(blocks, target_bytes)
-        # byte-capped blocks rescue within `slack` passes of the cut
+        # byte-capped blocks rescue within _STARVE_SLACK passes of the cut
         # (the hull near a mid-plane cut is unreliable); pass-capped
         # blocks have an exact hull below the cap, so only a pick AT
         # the cap means the optimum may lie beyond it
         starved = [cb for cb in blocks
-                   if (cb.capped and cb.chosen >= cb.npasses - slack)
+                   if (cb.capped and cb.chosen >= cb.npasses - _STARVE_SLACK)
                    or (cb.pass_capped and cb.chosen >= cb.npasses)]
-        if not starved or _round == max_rounds:
+        if not starved or _round == _MAX_RESCUE_ROUNDS:
             break
         if len(starved) > kcap:
             # noise-like content: nearly every block sits at the cap
@@ -410,20 +422,16 @@ def _allocate_rate(blocks, target_bytes, lib, workers, bands=None):
         from ..utils import spans
         _r0 = _t.time()
         with spans.span('t1_rescue'):
-            if bands is not None:
-                band_of = {id(cb): band for band in bands
-                           for cb in band.blocks}
-                by_band = {}
-                for cb in starved:
-                    band = band_of[id(cb)]
-                    by_band.setdefault(id(band),
-                                       (band, set()))[1].add(id(cb))
-                for band, ids in by_band.values():
-                    _encode_band_blocks(lib, band, only=ids)
-            else:
-                _encode_blocks(starved, lib, workers, caps=None)
+            band_of = {id(cb): band for band in bands
+                       for cb in band.blocks}
+            by_band = {}
+            for cb in starved:
+                band = band_of[id(cb)]
+                by_band.setdefault(id(band), (band, set()))[1].add(id(cb))
+            for band, ids in by_band.values():
+                _encode_band_blocks(lib, band, only=ids)
         _stat('rescue', _t.time() - _r0, len(starved))
-    _final_encode(blocks, lib, workers)
+    _final_encode(blocks)
 
 
 # Safety margin added to a pass-end rate when truncating the MQ stream
@@ -436,7 +444,7 @@ def _allocate_rate(blocks, target_bytes, lib, workers, bands=None):
 _TRUNC_MARGIN = 2
 
 
-def _final_encode(blocks, lib, workers):
+def _final_encode(blocks):
     """Realize each block's chosen pass count by TRUNCATING its fully
     coded stream at the recorded pass-end rate (+margin) — no
     re-encode.  Round 1 re-encoded every truncated block (25% of the
@@ -606,41 +614,6 @@ class _Band:
                     blk, _ORIENT_CODE[orient], weight))
 
 
-def _encode_blocks(blocks, lib, workers, caps=None, max_passes=-1):
-    """T1-encode blocks (optionally byte- or pass-capped), recording
-    whether a cap actually cut passes so the allocator can re-encode
-    starved blocks uncapped."""
-    def run(cb):
-        if not cb.arr.any():
-            # all-zero block: no planes, no passes, no bytes — skip the
-            # int32 copy and the native call (the common case for fine
-            # bands of pack4 MRC layers)
-            cb.data, cb.nbps, cb.npasses = b'', 0, 0
-            cb.rates = np.zeros(0, np.int64)
-            cb.dists = np.zeros(0, np.float64)
-            cb.capped = False
-            cb.pass_capped = False
-            cb.hull_rows = None
-            return
-        cap = caps.get(id(cb), 0) if caps else 0
-        (cb.data, cb.nbps, cb.npasses, cb.rates, cb.dists) = \
-            _encode_block(lib, cb.arr, cb.orient_code,
-                          max_passes=max_passes if max_passes > 0 else -1,
-                          max_bytes=cap)
-        short = cb.npasses < 3 * cb.nbps - 2
-        cb.capped = bool(cap) and short
-        cb.pass_capped = (not cb.capped and max_passes > 0
-                          and cb.npasses >= max_passes and short)
-        cb.hull_rows = None
-
-    if workers > 1 and len(blocks) > 1:
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            list(pool.map(run, blocks))
-    else:
-        for cb in blocks:
-            run(cb)
-
-
 def _encode_band_blocks(lib, band, caps=None, only=None, max_passes=-1):
     """T1-encode every block of one band with ONE native call.
 
@@ -742,24 +715,15 @@ def _t1_all(bands, lib, workers, target_bytes=None):
     # _allocate_rate), so a low floor costs quality nothing.
     caps = {}
     pass_caps = {}
-    # APT_T1_CAPS: auto (default policy below) | all (cap every band,
-    # the r3 behavior) | off — the A/B knob for tools/t1_cap_ab.py
-    cap_mode = os.environ.get('APT_T1_CAPS', 'auto')
-    if target_bytes and cap_mode != 'off':
+    if target_bytes:
         # floor 512 (was 96): on the realistic corpus the 96-byte floor
         # sat exactly at the int8 level-3 blocks' typical chosen size,
         # so their rescue re-encoded ~35 blocks/job every page — pure
         # double work.  512 uncaps those small producers (initial +0.08
         # s/3pages, rescue -0.54) and stays byte-identical; A/B
         # 2026-08-20: floor 96 0.741 s, 256 0.712, 512 0.617 (3 pages).
-        floor = int(os.environ.get('APT_T1_CAP_FLOOR', '512'))
         total_px = sum(cb.arr.size for cb in blocks) or 1
         for band in bands:
-            if cap_mode == 'all':
-                for cb in band.blocks:
-                    caps[id(cb)] = max(
-                        floor, 4 * target_bytes * cb.arr.size // total_px)
-                continue
             # pack4 plane-budgeted bands (<= 7 passes): a byte cap saves
             # ~nothing and rescue-storms (measured: 1287 blocks on one
             # 8-page batch), but their FINEST plane is the expensive one
@@ -768,9 +732,7 @@ def _t1_all(bands, lib, workers, target_bytes=None):
             # pass-cap at the top two planes; the exact-boundary rescue
             # realizes the rare block that wants more.
             if band.plane_budget is not None and band.plane_budget <= 4:
-                fine = int(os.environ.get('APT_T1_FINE_PASSES', '4'))
-                if fine > 0:
-                    pass_caps[id(band)] = fine
+                pass_caps[id(band)] = _FINE_PASSES
                 continue
             # small (coarse) full-precision bands: a byte cap starves
             # them structurally (at high ratios the byte budget
@@ -780,17 +742,16 @@ def _t1_all(bands, lib, workers, target_bytes=None):
             # on the realistic corpus these blocks record ~41-53 passes
             # and PCRD keeps ~0-12 (measured 2026-08-20, per-band pick
             # capture).  Cap by PASS COUNT instead — the top
-            # APT_T1_COARSE_PLANES (default 7) bit planes, 19 passes —
-            # which cuts the dense deep planes where the cost lives
-            # while the starved rescue still guarantees the uncapped
-            # allocation when a block wants more.
+            # _COARSE_PLANES (7) bit planes, 19 passes — which cuts the
+            # dense deep planes where the cost lives while the starved
+            # rescue still guarantees the uncapped allocation when a
+            # block wants more.
             if band.arr.dtype != np.int8 and len(band.blocks) <= 64:
-                pass_caps[id(band)] = 3 * int(os.environ.get(
-                    'APT_T1_COARSE_PLANES', '7')) - 2
+                pass_caps[id(band)] = 3 * _COARSE_PLANES - 2
                 continue
             for cb in band.blocks:
                 caps[id(cb)] = max(
-                    floor, 4 * target_bytes * cb.arr.size // total_px)
+                    _CAP_FLOOR, 4 * target_bytes * cb.arr.size // total_px)
     import time as _t
     from ..utils import spans
     _i0 = _t.time()
@@ -803,10 +764,7 @@ def _t1_all(bands, lib, workers, target_bytes=None):
     if workers > 1 and len(bands) > 1:
         # multi-core hosts: band-level calls release the GIL for their
         # whole duration, so a thread per band parallelizes in C++
-        with ThreadPoolExecutor(max_workers=workers,
-                                thread_name_prefix='t1_band',
-                                initializer=spans.bind,
-                                initargs=(spans.current_call(),)) as pool:
+        with bound_threads('t1_band', workers) as pool:
             list(pool.map(enc, bands))
     else:
         for band in bands:
@@ -817,12 +775,7 @@ def _t1_all(bands, lib, workers, target_bytes=None):
 
 def _packet(bands_at_res, mb):
     """One packet (single layer, one precinct): header + body bytes.
-    bands_at_res: list of _Band in HL, LH, HH (or [LL]) order.
-
-    The header (tag trees + stuffed bit writer) is generated by
-    native/jp2t1.cpp:jp2t2_packet_header; the Python path below is the
-    readable reference and byte-identity oracle (APT_T2_IMPL=py,
-    tests/test_jp2tpu.py)."""
+    bands_at_res: list of _Band in HL, LH, HH (or [LL]) order."""
     if not any(band.blocks for band in bands_at_res):
         return b''                      # no blocks at all: no packet
     included = [cb for band in bands_at_res for cb in band.blocks
@@ -831,48 +784,56 @@ def _packet(bands_at_res, mb):
         bw = _BitWriter()
         bw.put(0)                       # empty packet
         return bw.flush()
+    return (_packet_header(bands_at_res, mb)
+            + b''.join(cb.chosen_bytes for cb in included))
 
-    if _lib is not None and os.environ.get('APT_T2_IMPL') != 'py':
-        bands = [b for b in bands_at_res if b.blocks]
-        nb_tot = sum(len(b.blocks) for b in bands)
-        nxs = np.array([b.nx for b in bands], np.int32)
-        nys = np.array([b.ny for b in bands], np.int32)
-        incl = np.zeros(nb_tot, np.uint8)
-        zbp = np.zeros(nb_tot, np.int32)
-        np_ = np.zeros(nb_tot, np.int32)
-        lens = np.zeros(nb_tot, np.int64)
-        body = []
-        pos = 0
-        for band in bands:
-            mbb = mb[band]
-            for i, cb in enumerate(band.blocks):
-                if cb.chosen > 0 and len(cb.chosen_bytes):
-                    incl[pos + i] = 1
-                    zbp[pos + i] = max(0, mbb - cb.nbps)
-                    np_[pos + i] = cb.chosen
-                    lens[pos + i] = len(cb.chosen_bytes)
-                    body.append(cb.chosen_bytes)
-            pos += len(band.blocks)
-        # worst-case header bits per included block: two tag-tree
-        # walks (<= ~2 bits/level + threshold zeros), npasses (<= 16),
-        # Lblock ones + length (<= ~40) — 64 bytes/block is generous
-        cap = 64 * nb_tot + 1024
-        out = np.empty(cap, np.uint8)
-        intp = ctypes.POINTER(ctypes.c_int)
-        n = _lib.jp2t2_packet_header(
-            len(bands), nxs.ctypes.data_as(intp),
-            nys.ctypes.data_as(intp),
-            incl.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            zbp.ctypes.data_as(intp), np_.ctypes.data_as(intp),
-            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
-        if n < 0:
-            raise RuntimeError('jp2t2_packet_header overflow')
-        return out[:n].tobytes() + b''.join(body)
 
+def _packet_header(bands_at_res, mb):
+    """The header of a packet with at least one included block, made by
+    native/jp2t1.cpp:jp2t2_packet_header; ``_packet_header_py`` is its
+    readable reference and byte-identity oracle
+    (tests/test_torch_jp2.py)."""
+    bands = [b for b in bands_at_res if b.blocks]
+    nb_tot = sum(len(b.blocks) for b in bands)
+    nxs = np.array([b.nx for b in bands], np.int32)
+    nys = np.array([b.ny for b in bands], np.int32)
+    incl = np.zeros(nb_tot, np.uint8)
+    zbp = np.zeros(nb_tot, np.int32)
+    np_ = np.zeros(nb_tot, np.int32)
+    lens = np.zeros(nb_tot, np.int64)
+    pos = 0
+    for band in bands:
+        mbb = mb[band]
+        for i, cb in enumerate(band.blocks):
+            if cb.chosen > 0 and len(cb.chosen_bytes):
+                incl[pos + i] = 1
+                zbp[pos + i] = max(0, mbb - cb.nbps)
+                np_[pos + i] = cb.chosen
+                lens[pos + i] = len(cb.chosen_bytes)
+        pos += len(band.blocks)
+    # worst-case header bits per included block: two tag-tree
+    # walks (<= ~2 bits/level + threshold zeros), npasses (<= 16),
+    # Lblock ones + length (<= ~40) — 64 bytes/block is generous
+    cap = 64 * nb_tot + 1024
+    out = np.empty(cap, np.uint8)
+    intp = ctypes.POINTER(ctypes.c_int)
+    n = _get_lib().jp2t2_packet_header(
+        len(bands), nxs.ctypes.data_as(intp),
+        nys.ctypes.data_as(intp),
+        incl.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        zbp.ctypes.data_as(intp), np_.ctypes.data_as(intp),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
+    if n < 0:
+        raise RuntimeError('jp2t2_packet_header overflow')
+    return out[:n].tobytes()
+
+
+def _packet_header_py(bands_at_res, mb):
+    """``_packet_header`` in Python: tag trees and the stuffed bit
+    writer."""
     bw = _BitWriter()
     bw.put(1)
-    body = bytearray()
     for band in bands_at_res:
         if not band.blocks:
             continue
@@ -905,8 +866,7 @@ def _packet(bands_at_res, mb):
             bw.put(0)
             lblock[i] = lb
             bw.put_bits(ln, full)
-            body += cb.chosen_bytes
-    return bw.flush() + bytes(body)
+    return bw.flush()
 
 
 def _assemble(w, h, ncomp, levels, guard, comp_bands, mct):
@@ -1007,8 +967,7 @@ def _host_encode(qbands, w, h, ncomp, levels, base_delta, ratio, rgb,
         blocks = [cb for bands in comp_bands
                   for band in bands for cb in band.blocks]
         if target is not None:
-            _allocate_rate(blocks, target, lib, workers,
-                           bands=all_bands)
+            _allocate_rate(blocks, target, lib, all_bands)
         else:
             for cb in blocks:
                 cb.chosen = cb.npasses
@@ -1169,12 +1128,10 @@ def encode_jp2_from_qbands(page_qbands, meta, ratio=None, workers=None,
     this page in the batch for the pack4 starvation refetch (the
     refetched device band carries the whole batch)."""
     lib = _get_lib()
-    if workers is None:
-        workers = min(8, os.cpu_count() or 1)
     return _host_encode(page_qbands, meta['w'], meta['h'],
                         meta['ncomp'], meta['levels'],
                         meta['base_delta'], ratio, meta['rgb'], lib,
-                        workers, wrap_jp2,
+                        tier1_width(workers), wrap_jp2,
                         shifts=meta.get('shifts'),
                         kplanes=meta.get('kplanes'),
                         refetch=meta.get('refetch'),

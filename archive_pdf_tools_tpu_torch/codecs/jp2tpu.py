@@ -30,7 +30,6 @@ thread waits for the copy; ``fetch(i)`` blocks until it is done.
 """
 
 import math
-import os
 import threading
 
 import numpy as np
@@ -38,6 +37,7 @@ import torch
 
 from ..ops.dwt97_cuda import dwt97
 from ..utils.backend import resolve_device
+from ..utils.workers import tier1_width
 from .jp2host import (_AsyncMeta, _PACK4_K_FINE, _get_lib, _host_encode,
                       _pack4_sets, band_layout, encode_jp2_from_qbands)
 
@@ -253,10 +253,8 @@ def encode_jp2_tpu(img, ratio=None, base_delta=1.0 / 64, levels=5,
     rgb = x.dim() == 3
     h, w = (int(s) for s in x.shape[:2])
     ncomp = 3 if rgb else 1
-    if workers is None:
-        workers = min(8, os.cpu_count() or 1)
     levels = capped_levels(h, w, levels)
     qbands = [[q[0].cpu().numpy() for q in comp]
               for comp in dwt97(x[None], levels, float(base_delta))]
     return _host_encode(qbands, w, h, ncomp, levels, float(base_delta),
-                        ratio, rgb, lib, workers, wrap_jp2)
+                        ratio, rgb, lib, tier1_width(workers), wrap_jp2)

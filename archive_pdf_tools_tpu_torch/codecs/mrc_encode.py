@@ -26,7 +26,8 @@ from PIL import Image
 
 from ..const import (COMPRESSOR_JPEG, COMPRESSOR_JPEG2000, COMPRESSOR_JBIG2,
                      COMPRESSOR_CCITT, JPEG2000_IMPL_PILLOW)
-from ..utils.spans import record, span
+from ..utils.spans import span
+from ..utils.workers import take, timed
 from . import jbig2 as jbig2_codec
 from . import ccitt as ccitt_codec
 from . import jpeg as jpeg_codec
@@ -119,7 +120,7 @@ def encode_mrc_img(np_img, img_compression_flags, imgtype=None,
                    encoders=None):
     """fg/bg layer -> EncodedLayer (``mrc.py:523-580``).
 
-    encoders: worker processes (``pipeline/pageload.py`` ``ENCODERS``)
+    encoders: worker processes (``utils/workers.py`` ``ENCODERS``)
     that encode a ``-J pillow`` JPEG2000 layer while this thread waits
     off the interpreter lock; None encodes it on this thread.
 
@@ -179,13 +180,11 @@ def encode_mrc_img(np_img, img_compression_flags, imgtype=None,
             elif jpeg2000_implementation == JPEG2000_IMPL_PILLOW:
                 flags = img_compression_flags[0]
                 if encoders is None:
-                    data = pillow_jp2.encode(np_img, flags)[0]
+                    data = pillow_jp2.encode(np_img, flags)
                 else:
-                    data, start, end, cpu, pid = encoders.submit(
-                        pillow_jp2.encode, np.asarray(np_img),
-                        flags).result()
-                    record('jp2_pillow', 'encode-proc-%d' % pid, pid,
-                           start, end, cpu)
+                    data = take(encoders.submit(
+                        timed, pillow_jp2.encode, np.asarray(np_img),
+                        flags).result(), 'jp2_pillow', 'encode-proc')
             else:
                 fd, out_path = mkstemp(prefix=imgtype, suffix='.jp2',
                                        dir=tmp_dir)

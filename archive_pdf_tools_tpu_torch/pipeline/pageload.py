@@ -1,5 +1,4 @@
-"""The decode of an image-stack page, and the worker processes that run
-it and Pillow's layer encode.
+"""The decode of an image-stack page.
 
 ``decode_page`` is the image-stack branch of ``recode``'s page load: a
 JPEG2000 file decoded (at a reduced resolution under ``--downsample``),
@@ -9,33 +8,16 @@ any other file read by Pillow, RGBA and LA flattened, and under
 ``recode``'s loader decodes the next pages ahead of the one it batches.
 Pillow's JPEG2000 decoder reads its input through a Python file object
 and holds the interpreter lock while it decodes, so a JPEG2000 page
-decodes in a worker process (``in_process``), where it frees the lock
-of the process that drives the card; every other format's decoder
-mostly releases the lock, so such a page decodes on a thread and is not
-copied between processes.
-
-``recode``'s encode pool sends each ``-J pillow`` JPEG2000 layer to the
-encode workers (``ENCODERS``, ``codecs/pillow_jp2.py``), a pool of their
-own: in one queue the decodes ahead would wait behind two-second
-encodes, or the encodes behind the decodes.
+decodes in a worker process (``in_process``; ``decode_packed`` on
+``utils/workers.py``'s ``WORKERS``), where it frees the lock of the
+process that drives the card; every other format's decoder mostly
+releases the lock, so such a page decodes on a thread and is not copied
+between processes.
 
 This module imports nothing of torch: a decode worker imports it,
-Pillow and the port's ``const`` and ``codecs/jpeg2000.py`` only, and an
-encode worker ``codecs/pillow_jp2.py``, numpy, Pillow and
-``codecs/jpeg2000.py``.  The workers start by ``spawn`` (the parent
-holds a CUDA context and threads, which ``fork`` would copy), so like
-every ``spawn`` child they import the parent's main script under
-``__mp_main__``: a script that calls ``recode`` on JPEG2000 pages or
-with ``-J pillow`` runs its work under ``if __name__ == '__main__'``.
+``utils/workers.py``, Pillow and the port's ``const`` and
+``codecs/jpeg2000.py`` only.
 """
-
-import atexit
-import multiprocessing
-import os
-import threading
-import time
-from concurrent.futures import ProcessPoolExecutor
-from concurrent.futures.process import BrokenProcessPool
 
 from PIL import Image
 
@@ -81,74 +63,11 @@ def in_process(path):
     return path.endswith(JPEG2000_SUFFIXES)
 
 
-def decode_width():
-    """Decode workers (processes or threads) for this process: half the
-    cores it may run on, at least 1 and at most 4; the other half is the
-    encode pool's, the host Tier-1 coder's and the main thread's."""
-    try:
-        cores = len(os.sched_getaffinity(0))
-    except AttributeError:   # no affinity call on this platform
-        cores = os.cpu_count() or 1
-    return min(4, max(1, cores // 2))
-
-
-def encode_width():
-    """Encode workers (``recode``'s encode pool threads, and the
-    processes that run their ``-J pillow`` layers): the host's cores, at
-    least 2 and at most 4.  A ``threads=`` that widens the pool leaves
-    the processes at this width."""
-    return min(4, max(2, os.cpu_count() or 4))
-
-
 def decode_packed(path, downsample, impl, threads, debug):
-    """``decode_page`` in a worker process.  Returns the page as
-    ``(mode, size, pixel bytes)`` for ``Image.frombytes``, then the
-    decode's start and end on ``perf_counter_ns`` (CLOCK_MONOTONIC, the
-    same clock in every process of the machine), its thread CPU time in
-    ns, and this process's id."""
-    start = time.perf_counter_ns()
-    cpu = time.thread_time_ns()
+    """``decode_page`` in a worker process: the page as ``(mode, size,
+    pixel bytes)`` for ``Image.frombytes``."""
     image = decode_page(path, downsample, impl, threads, debug)
     if image.mode not in ('1', 'L', 'RGB'):
         # as the loader would: a palette does not survive the bytes
         image = image.convert('RGB')
-    data = image.tobytes()
-    cpu = time.thread_time_ns() - cpu
-    return (image.mode, image.size, data, start, time.perf_counter_ns(),
-            cpu, os.getpid())
-
-
-class Workers:
-    """A pool of ``width()`` worker processes: started on the first
-    submit and kept across ``recode()`` calls (starting them costs about
-    a second, once), started anew on the submit after one died (the
-    executor is then broken), shut down at interpreter exit."""
-
-    def __init__(self, width):
-        self._width = width
-        self._lock = threading.Lock()
-        self._pool = None
-
-    def submit(self, fn, *args):
-        with self._lock:
-            if self._pool is not None:
-                try:
-                    return self._pool.submit(fn, *args)
-                except BrokenProcessPool:
-                    self._pool.shutdown(wait=False, cancel_futures=True)
-            self._pool = ProcessPoolExecutor(
-                self._width(),
-                mp_context=multiprocessing.get_context('spawn'))
-            return self._pool.submit(fn, *args)
-
-    def shutdown(self):
-        with self._lock:
-            pool, self._pool = self._pool, None
-        if pool is not None:
-            pool.shutdown(wait=True, cancel_futures=True)
-
-
-WORKERS = Workers(decode_width)
-ENCODERS = Workers(encode_width)
-atexit.register(WORKERS.shutdown)
-atexit.register(ENCODERS.shutdown)
+    return image.mode, image.size, image.tobytes()

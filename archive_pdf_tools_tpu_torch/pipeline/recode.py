@@ -25,7 +25,6 @@ import os
 import queue
 import sys
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from glob import glob
 from time import time
 from xml.sax.saxutils import escape as xmlescape
@@ -55,7 +54,7 @@ from ..pdf.reader import PdfReader
 from ..pdf.writer import Name
 from ..pipeline import pageload
 from ..pipeline.timing import get_timing_summary, Reporter
-from ..utils import spans
+from ..utils import spans, workers
 from ..utils.backend import (pack_mask_bits, resolve_device, synchronize,
                              unpack_mask_bits)
 from ..utils.spans import span
@@ -291,24 +290,22 @@ def _decode_timed(path, downsample, jpeg2000_implementation, threads, debug,
 
 
 def _pages_ahead(paths, downsample, jpeg2000_implementation, threads, debug,
-                 timing_data, call_id):
+                 timing_data):
     """The image-stack pages ``paths`` decoded ahead of the loader and
     yielded in page order, whatever order their decodes end in.
 
     A JPEG2000 page decodes in the process's worker processes
-    (``pageload.WORKERS``), any other page on this call's decode threads
+    (``workers.WORKERS``), any other page on this call's decode threads
     (``decode_<n>``, each bound to the call), with at most twice
-    ``pageload.decode_width()`` pages in flight.  A decode thread times
+    ``workers.decode_width()`` pages in flight.  A decode thread times
     its page in an ``image_load`` span; a worker process times its own,
     and its ``image_load`` key, and while tracing its record (thread
     ``decode-proc-<pid>``), are added here.  The wait for the next page in
     order is the span ``page_fetch``.  A decode's exception is raised
     here.  Closing the generator, or an exception, cancels the decodes
     not yet started and waits for the decode threads."""
-    width = pageload.decode_width()
-    decoders = ThreadPoolExecutor(max_workers=width,
-                                  thread_name_prefix='decode',
-                                  initializer=spans.bind, initargs=(call_id,))
+    width = workers.decode_width()
+    decoders = workers.bound_threads('decode', width)
     args = (downsample, jpeg2000_implementation, threads, debug)
     in_flight = collections.deque()
     paths = iter(paths)
@@ -316,8 +313,8 @@ def _pages_ahead(paths, downsample, jpeg2000_implementation, threads, debug,
         while True:
             for path in itertools.islice(paths, 2 * width - len(in_flight)):
                 if pageload.in_process(path):
-                    fut = pageload.WORKERS.submit(pageload.decode_packed,
-                                                  path, *args)
+                    fut = workers.WORKERS.submit(
+                        workers.timed, pageload.decode_packed, path, *args)
                 else:
                     fut = decoders.submit(_decode_timed, path, *args,
                                           timing_data)
@@ -326,12 +323,11 @@ def _pages_ahead(paths, downsample, jpeg2000_implementation, threads, debug,
                 return
             with span('page_fetch'):
                 page = in_flight.popleft().result()
-            if isinstance(page, tuple):
-                mode, size, data, start, end, cpu, pid = page
-                page = Image.frombytes(mode, size, data)
-                timing_data.append(('image_load', (end - start) / 1e9))
-                spans.record('image_load', 'decode-proc-%d' % pid, pid,
-                             start, end, cpu)
+            if isinstance(page, workers.Timed):
+                timing_data.append(
+                    ('image_load', (page.end_ns - page.start_ns) / 1e9))
+                page = Image.frombytes(*workers.take(page, 'image_load',
+                                                     'decode-proc'))
             yield page
     finally:
         for fut in in_flight:
@@ -484,17 +480,8 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
 
     reporting_page_count = 0
     last_time = time()
-    # encode-pool width: an explicit threads= (down to 1), else 2 on a
-    # 1-core host and up to 4 otherwise
-    if threads:
-        n_workers = max(1, threads)
-    else:
-        n_workers = pageload.encode_width()
-    # the loader and the pool's threads report their spans to this call
-    call_id = spans.current_call()
-    pool = ThreadPoolExecutor(max_workers=n_workers,
-                              thread_name_prefix='encode',
-                              initializer=spans.bind, initargs=(call_id,))
+    n_workers = workers.encode_width(threads)
+    pool = workers.bound_threads('encode', n_workers)
     pending = []   # encode futures; drained IN PAGE ORDER (main thread)
     max_pending = 4 * n_workers   # bounds fg/bg buffers held by the queue
 
@@ -502,7 +489,7 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
                     bg_qbands=None):
         """Encode one page's components on the pool, a ``-J pillow``
         JPEG2000 layer in an encode worker process
-        (``pageload.ENCODERS``).  The builder insertion happens in the
+        (``workers.ENCODERS``).  The builder insertion happens in the
         page-ordered drain, not here."""
         bgf = hq_bg_compression_flags if job.hq else bg_compression_flags
         fgf = hq_fg_compression_flags if job.hq else fg_compression_flags
@@ -515,7 +502,7 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             threads=threads, timing_data=timing_data, debug=debug,
             jbig2_symbol_mode=jbig2_symbol_mode, jbig2_bands=jbig2_bands,
             fg_qbands=fg_qbands, bg_qbands=bg_qbands, device=device,
-            encoders=pageload.ENCODERS)
+            encoders=workers.ENCODERS)
         if img_dir is not None:
             _write_artifacts(img_dir, job, image_mode, em, eb, ef)
         return job, image_mode == 'L', em, eb, ef
@@ -660,8 +647,10 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
     load_error = []
     stop_loading = threading.Event()
 
+    bind = workers.binding()   # the loader reports its spans to this call
+
     def loader():
-        spans.bind(call_id)
+        bind()
         batch_jobs, batch_images, batch_key = [], [], None
         # an image stack's pages decode ahead of this thread; a source
         # PDF's pages decode here
@@ -670,7 +659,7 @@ def insert_images_mrc(builder, hocr_file, in_pdf=None, image_files=None,
             pages = _pages_ahead(
                 (image_files[job.src_idx if image_files else job.page_idx]
                  for job in jobs), downsample, jpeg2000_implementation,
-                threads, debug, timing_data, call_id)
+                threads, debug, timing_data)
         try:
             for job in jobs:
                 if stop_loading.is_set():

@@ -160,6 +160,31 @@ def test_encode_bytes_equal_jax(ratio, rgb):
             == J.encode_jp2_tpu_batch(imgs, ratio=ratio))
 
 
+@pytest.mark.parametrize('ratio', [30, 500, 750, None])
+@pytest.mark.parametrize('rgb', [False, True])
+def test_native_packet_headers_equal_python_headers(monkeypatch, ratio, rgb):
+    """Every packet header of a grey and an RGB page, alone and in a
+    pack4 batch, is the same from the native Tier-2 coder as from its
+    Python oracle, byte for byte."""
+    native = H._packet_header
+    seen = []
+
+    def both(bands_at_res, mb):
+        got = native(bands_at_res, mb)
+        assert got == H._packet_header_py(bands_at_res, mb)
+        seen.append(len(got))
+        return got
+
+    monkeypatch.setattr(H, '_packet_header', both)
+    g = _page(seed=23)
+    imgs = np.stack([g, g[::-1].copy()])
+    if rgb:
+        imgs = np.stack([_rgb(p) for p in imgs])
+    P.encode_jp2_tpu(imgs[0], ratio=ratio, device='cpu')
+    P.encode_jp2_tpu_batch(imgs, ratio=ratio, device='cpu')
+    assert len(seen) >= 3 and min(seen) > 0
+
+
 def test_pack8_batch_bytes_equal_jax():
     imgs = np.stack([_rgb(_page(seed=24)), _rgb(_page(seed=25))])
     got = P.encode_jp2_tpu_batch(imgs, ratio=250, pack8=True, device='cpu')

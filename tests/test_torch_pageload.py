@@ -1,8 +1,9 @@
-"""The page decode ahead of the loader (``pipeline/pageload.py`` and
-``recode._pages_ahead``): JPEG2000 pages in worker processes, other pages
-on decode threads, equal to the in-process load, in page order, with
-the old exceptions, no thread left behind, no torch in a worker, and a
-JPEG2000 book byte-identical with the JAX package's recode."""
+"""The page decode ahead of the loader (``pipeline/pageload.py``,
+``utils/workers.py`` ``WORKERS`` and ``recode._pages_ahead``): JPEG2000
+pages in worker processes, other pages on decode threads, equal to the
+in-process load, in page order, with the old exceptions, no thread left
+behind, no torch in a worker, and a JPEG2000 book byte-identical with
+the JAX package's recode."""
 
 import os
 import signal
@@ -21,6 +22,7 @@ from archive_pdf_tools_tpu_torch.pdf import builder as port_builder
 from archive_pdf_tools_tpu_torch.pipeline import pageload
 from archive_pdf_tools_tpu_torch.pipeline import recode as port_recode
 from archive_pdf_tools_tpu_torch.utils import spans
+from archive_pdf_tools_tpu_torch.utils import workers as port_workers
 from tests.fixtures import HOCR_TEMPLATE, render_book_page, words_to_hocr_page
 
 torch.set_num_threads(2)
@@ -66,7 +68,7 @@ def _book(tmp_path, exts, words=True):
 def _ahead(paths, downsample=None, sink=None):
     return list(port_recode._pages_ahead(
         paths, downsample, 'pillow', None, False,
-        sink if sink is not None else [], spans.current_call()))
+        sink if sink is not None else []))
 
 
 def _leftover_threads():
@@ -125,7 +127,7 @@ def test_book_keeps_page_order_when_decodes_end_in_reverse(tmp_path,
 
     monkeypatch.setattr(pageload, 'decode_page', reverse)
     port_recode.recode(out_pdf=str(tmp_path / 'b.pdf'), device='cpu', **kw)
-    if pageload.decode_width() > 1:
+    if port_workers.decode_width() > 1:
         assert ended != sorted(ended)
     assert sorted(ended) == list(range(5))
     # page 1 is RGB: three batches of one key each
@@ -151,18 +153,24 @@ def test_corrupt_page_raises_as_before(tmp_path, ext):
     assert not _leftover_threads()
 
 
+def _probe(path, impl):
+    """A worker's timed decode of ``path``, then its modules."""
+    return ("(__import__('%s', fromlist=['timed']).timed(__import__('%s',"
+            " fromlist=['decode_packed']).decode_packed, %r, None, %r, None,"
+            " False), sorted(__import__('sys').modules))"
+            % (port_workers.__name__, pageload.__name__, path, impl))
+
+
 def test_worker_process_holds_no_torch(tmp_path):
     """Each worker decodes a page, then lists its modules."""
     path = _save(_pixels('L'), str(tmp_path / 'p.jp2'))
-    probe = ("(__import__('%s', fromlist=['decode_packed'])"
-             ".decode_packed(%r, None, 'pillow', None, False),"
-             " sorted(__import__('sys').modules))" % (pageload.__name__, path))
-    futs = [pageload.WORKERS.submit(eval, probe)
-            for _ in range(2 * pageload.decode_width())]
+    futs = [port_workers.WORKERS.submit(eval, _probe(path, 'pillow'))
+            for _ in range(2 * port_workers.decode_width())]
     for fut in futs:
         page, mods = fut.result(120)
-        assert page[:2] == ('L', (W, H)) and page[-1] != os.getpid()
+        assert page.value[:2] == ('L', (W, H)) and page.pid != os.getpid()
         assert 'PIL' in mods and pageload.__name__ in mods
+        assert port_workers.__name__ in mods
         assert 'torch' not in mods
 
 
@@ -173,14 +181,11 @@ def test_tpu_decode_worker_holds_no_torch(tmp_path):
     worker."""
     path = _save(_pixels('RGB'), str(tmp_path / 'p.jp2'))
     host = pageload.__name__.replace('pipeline.pageload', 'codecs.jp2host')
-    probe = ("(__import__('%s', fromlist=['decode_packed'])"
-             ".decode_packed(%r, None, 'tpu', None, False),"
-             " sorted(__import__('sys').modules))" % (pageload.__name__, path))
-    futs = [pageload.WORKERS.submit(eval, probe)
-            for _ in range(2 * pageload.decode_width())]
+    futs = [port_workers.WORKERS.submit(eval, _probe(path, 'tpu'))
+            for _ in range(2 * port_workers.decode_width())]
     for fut in futs:
         page, mods = fut.result(120)
-        assert page[:2] == ('RGB', (W, H)) and page[-1] != os.getpid()
+        assert page.value[:2] == ('RGB', (W, H)) and page.pid != os.getpid()
         assert host in mods
         assert 'torch' not in mods
 
@@ -191,9 +196,9 @@ def test_workers_start_anew_after_one_dies(tmp_path):
     then starts the new pool at once); the next decode starts anew."""
     path = _save(_pixels('L'), str(tmp_path / 'p.jp2'))
     args = (pageload.decode_packed, path, None, 'pillow', None, False)
-    pageload.WORKERS.submit(*args).result(120)
+    port_workers.WORKERS.submit(*args).result(120)
     pidfile = tmp_path / 'pid'
-    fut = pageload.WORKERS.submit(
+    fut = port_workers.WORKERS.submit(
         eval, "open(%r, 'w').write(str(__import__('os').getpid()))"
               " and __import__('time').sleep(120)" % str(pidfile))
     deadline = time.time() + 60
@@ -203,7 +208,7 @@ def test_workers_start_anew_after_one_dies(tmp_path):
     os.kill(int(pidfile.read_text()), signal.SIGKILL)
     with pytest.raises(BrokenProcessPool):
         fut.result(120)
-    mode, size, data = pageload.WORKERS.submit(*args).result(120)[:3]
+    mode, size, data = port_workers.WORKERS.submit(*args).result(120)[:3]
     assert (mode, size, len(data)) == ('L', (W, H), W * H)
 
 

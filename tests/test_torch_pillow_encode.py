@@ -1,5 +1,5 @@
 """Pillow's JPEG2000 layer encode in worker processes
-(``codecs/pillow_jp2.py``, ``pipeline/pageload.py`` ``ENCODERS``): a
+(``codecs/pillow_jp2.py``, ``utils/workers.py`` ``ENCODERS``): a
 ``-J pillow`` layer that ``recode`` encodes in a worker has the bytes of
 the in-process encode, a book the JAX package's bytes on every run, a
 traced book one ``jp2_pillow`` record a layer, a failing layer the old
@@ -27,9 +27,9 @@ from archive_pdf_tools_tpu_torch.codecs import pillow_jp2
 from archive_pdf_tools_tpu_torch.codecs.jpeg2000 import _pillow_kwargs
 from archive_pdf_tools_tpu_torch.codecs.mrc_encode import encode_mrc_img
 from archive_pdf_tools_tpu_torch.pdf import builder as port_builder
-from archive_pdf_tools_tpu_torch.pipeline import pageload
 from archive_pdf_tools_tpu_torch.pipeline import recode as port_recode
 from archive_pdf_tools_tpu_torch.utils import spans
+from archive_pdf_tools_tpu_torch.utils import workers as port_workers
 from tests.fixtures import HOCR_TEMPLATE, render_book_page, words_to_hocr_page
 from tests.test_torch_cli_tools import _jpeg_source
 
@@ -70,8 +70,8 @@ def _book(tmp_path, exts):
 
 def _fresh_encoders(monkeypatch):
     """An encode pool of this test's own, in the place recode reads."""
-    workers = pageload.Workers(pageload.encode_width)
-    monkeypatch.setattr(pageload, 'ENCODERS', workers)
+    workers = port_workers.Workers(port_workers.encode_width)
+    monkeypatch.setattr(port_workers, 'ENCODERS', workers)
     return workers
 
 
@@ -86,7 +86,7 @@ def test_worker_bytes_equal_in_process_encode(mode, imgtype, rate):
                           jpeg2000_implementation='pillow')
     there = encode_mrc_img(layer, flags, imgtype=imgtype,
                            jpeg2000_implementation='pillow',
-                           encoders=pageload.ENCODERS)
+                           encoders=port_workers.ENCODERS)
     buf = io.BytesIO()
     Image.fromarray(layer).save(buf, format='JPEG2000',
                                 **_pillow_kwargs(flags[0]))
@@ -147,7 +147,7 @@ def test_failing_layer_raises_as_before():
         with pytest.raises(Exception) as now:
             encode_mrc_img(layer, [flags], imgtype='fg',
                            jpeg2000_implementation='pillow',
-                           encoders=pageload.ENCODERS)
+                           encoders=port_workers.ENCODERS)
         assert type(now.value) is type(before.value)
         assert str(now.value) == str(before.value)
 
@@ -189,12 +189,12 @@ def test_encoders_start_anew_after_one_dies(tmp_path):
     flags = [_rates(500)]
     encode_mrc_img(layer, flags, imgtype='bg',
                    jpeg2000_implementation='pillow',
-                   encoders=pageload.ENCODERS)
+                   encoders=port_workers.ENCODERS)
     with pytest.raises(BrokenProcessPool):
-        _kill_busy_worker(pageload.ENCODERS, tmp_path).result(120)
+        _kill_busy_worker(port_workers.ENCODERS, tmp_path).result(120)
     now = encode_mrc_img(layer, flags, imgtype='bg',
                          jpeg2000_implementation='pillow',
-                         encoders=pageload.ENCODERS)
+                         encoders=port_workers.ENCODERS)
     assert now == encode_mrc_img(layer, flags, imgtype='bg',
                                  jpeg2000_implementation='pillow')
 
@@ -223,16 +223,18 @@ def test_compress_pdf_images_starts_no_encode_worker(tmp_path, monkeypatch):
 
 def test_encode_worker_holds_no_torch():
     """Each worker encodes a layer, then lists its modules."""
-    probe = ("(__import__('%s', fromlist=['encode']).encode("
-             "__import__('numpy').full((64, 48), 128, 'uint8'), %r),"
+    probe = ("(__import__('%s', fromlist=['timed']).timed(__import__('%s',"
+             " fromlist=['encode']).encode,"
+             " __import__('numpy').full((64, 48), 128, 'uint8'), %r),"
              " sorted(__import__('sys').modules))"
-             % (pillow_jp2.__name__, _rates(750)))
-    futs = [pageload.ENCODERS.submit(eval, probe)
-            for _ in range(2 * pageload.encode_width())]
+             % (port_workers.__name__, pillow_jp2.__name__, _rates(750)))
+    futs = [port_workers.ENCODERS.submit(eval, probe)
+            for _ in range(2 * port_workers.encode_width())]
     for fut in futs:
         out, mods = fut.result(120)
-        assert out[0] == pillow_jp2.encode(np.full((64, 48), 128, 'uint8'),
-                                           _rates(750))[0]
-        assert out[-1] != os.getpid()
+        assert out.value == pillow_jp2.encode(
+            np.full((64, 48), 128, 'uint8'), _rates(750))
+        assert out.pid != os.getpid()
         assert 'PIL' in mods and pillow_jp2.__name__ in mods
+        assert port_workers.__name__ in mods
         assert 'torch' not in mods

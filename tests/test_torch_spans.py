@@ -6,7 +6,6 @@ unchanged."""
 
 import collections
 import json
-import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -18,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from archive_pdf_tools_tpu.pipeline import recode as jax_recode_mod
 from archive_pdf_tools_tpu_torch.pipeline import recode as port_recode
 from archive_pdf_tools_tpu_torch.utils import spans
+from archive_pdf_tools_tpu_torch.utils import workers as port_workers
 from archive_pdf_tools_tpu_torch.utils.spans import span
 from tests.fixtures import HOCR_TEMPLATE, render_book_page, words_to_hocr_page
 
@@ -311,7 +311,7 @@ def test_tier1_band_spans_on_an_rgb_jtpu_page(tmp_path, monkeypatch):
     assert len(bands) == 87
     assert all(r.call == root.call and 0 <= r.cpu_ns <= _wall(r)
                for r in bands)
-    band_pool = (os.cpu_count() or 1) > 1
+    band_pool = port_workers.tier1_width() > 1
     assert all(r.thread.startswith('t1_band' if band_pool else 'encode')
                for r in bands)
     by_id = {r.id: r for r in recs}
