@@ -9,10 +9,11 @@ any other file read by Pillow, RGBA and LA flattened, and under
 Pillow's JPEG2000 decoder reads its input through a Python file object
 and holds the interpreter lock while it decodes, so a JPEG2000 page
 decodes in a worker process (``in_process``; ``decode_packed`` on
-``utils/workers.py``'s ``WORKERS``), where it frees the lock of the
-process that drives the card; every other format's decoder mostly
-releases the lock, so such a page decodes on a thread and is not copied
-between processes.
+``utils/workers.py``'s ``WORKERS``, ``jp2_decode_width()`` processes),
+where it frees the lock of the process that drives the card; every
+other format's decoder mostly releases the lock, so such a page decodes
+on a thread (``decode_width()`` of them) and is not copied between
+processes.
 
 This module imports nothing of torch: a decode worker imports it,
 ``utils/workers.py``, Pillow and the port's ``const`` and

@@ -19,7 +19,6 @@ this engine (``PRODUCER``) in Info and XMP.
 
 import collections
 import io
-import itertools
 import json
 import os
 import queue
@@ -295,9 +294,10 @@ def _pages_ahead(paths, downsample, jpeg2000_implementation, threads, debug,
     yielded in page order, whatever order their decodes end in.
 
     A JPEG2000 page decodes in the process's worker processes
-    (``workers.WORKERS``), any other page on this call's decode threads
-    (``decode_<n>``, each bound to the call), with at most twice
-    ``workers.decode_width()`` pages in flight.  A decode thread times
+    (``workers.WORKERS``, ``jp2_decode_width()`` wide), any other page on
+    this call's decode threads (``decode_<n>``, each bound to the call,
+    ``decode_width()`` wide); a page is sent once fewer pages than twice
+    the width of its pool are in flight.  A decode thread times
     its page in an ``image_load`` span; a worker process times its own,
     and its ``image_load`` key, and while tracing its record (thread
     ``decode-proc-<pid>``), are added here.  The wait for the next page in
@@ -305,20 +305,27 @@ def _pages_ahead(paths, downsample, jpeg2000_implementation, threads, debug,
     here.  Closing the generator, or an exception, cancels the decodes
     not yet started and waits for the decode threads."""
     width = workers.decode_width()
+    jp2_width = workers.jp2_decode_width()
     decoders = workers.bound_threads('decode', width)
     args = (downsample, jpeg2000_implementation, threads, debug)
     in_flight = collections.deque()
     paths = iter(paths)
     try:
+        path = next(paths, None)
         while True:
-            for path in itertools.islice(paths, 2 * width - len(in_flight)):
-                if pageload.in_process(path):
+            while path is not None:
+                in_process = pageload.in_process(path)
+                if len(in_flight) >= 2 * (jp2_width if in_process
+                                          else width):
+                    break
+                if in_process:
                     fut = workers.WORKERS.submit(
                         workers.timed, pageload.decode_packed, path, *args)
                 else:
                     fut = decoders.submit(_decode_timed, path, *args,
                                           timing_data)
                 in_flight.append(fut)
+                path = next(paths, None)
             if not in_flight:
                 return
             with span('page_fetch'):

@@ -2,6 +2,12 @@
 it, the worker processes, the thread pools bound to a ``recode()`` call,
 and the timing of work done in a worker process.
 
+The widths: ``jp2_decode_width()`` the JPEG2000 decode processes
+(``WORKERS``), ``decode_width()`` the decode threads of other pages,
+``encode_width(threads)`` the encode pool's threads and the ``-J
+pillow`` encode processes (``ENCODERS``), ``tier1_width(threads)`` the
+Tier-1 band threads of one layer's encode.
+
 A ``threads=`` given to ``recode()`` sets the encode pool's width and
 the Tier-1 band threads'; the decoders and external coders get it as it
 is given.
@@ -36,9 +42,17 @@ def cores():
 
 
 def decode_width():
-    """Decode workers, processes or threads: half the cores, 1-4; the
-    other half is the encode pool's, Tier-1's and the main thread's."""
+    """Decode threads, for an image stack's pages that are not JPEG2000:
+    half the cores, 1-4."""
     return min(4, max(1, cores() // 2))
+
+
+def jp2_decode_width():
+    """JPEG2000 decode processes (``WORKERS``): the cores, at most 8, one
+    batch at the default ``--batch-pages``.  A process a core beats
+    openjpeg's own threads: the code-stream parse and the read through
+    Pillow's file object do not split over threads."""
+    return min(8, cores())
 
 
 def encode_width(threads=None):
@@ -87,7 +101,7 @@ class Workers:
 
 # apart: in one queue the decodes ahead would wait behind two-second
 # encodes, or the encodes behind the decodes
-WORKERS = Workers(decode_width)
+WORKERS = Workers(jp2_decode_width)
 ENCODERS = Workers(encode_width)
 atexit.register(WORKERS.shutdown)
 atexit.register(ENCODERS.shutdown)

@@ -5,6 +5,7 @@ in-process load, in page order, with the old exceptions, no thread left
 behind, no torch in a worker, and a JPEG2000 book byte-identical with
 the JAX package's recode."""
 
+import concurrent.futures
 import os
 import signal
 import threading
@@ -136,6 +137,49 @@ def test_book_keeps_page_order_when_decodes_end_in_reverse(tmp_path,
         (tmp_path / 'b.pdf').read_bytes()
 
 
+class _CountingPool:
+    """A pool that runs each submit at once and counts the submits."""
+
+    def __init__(self):
+        self.submits = 0
+
+    def submit(self, fn, *args):
+        self.submits += 1
+        fut = concurrent.futures.Future()
+        fut.set_result(fn(*args))
+        return fut
+
+    def shutdown(self, **kw):
+        pass
+
+
+@pytest.mark.parametrize('cores', [3, 8])
+@pytest.mark.parametrize('ext', ['jp2', 'png'])
+def test_pages_in_flight_are_twice_the_width_of_their_pool(monkeypatch, ext,
+                                                           cores):
+    """A JPEG2000 stack keeps twice ``jp2_decode_width()`` pages in
+    flight, any other stack twice ``decode_width()``; the pages come out
+    in page order."""
+    monkeypatch.setattr(port_workers, 'cores', lambda: cores)
+    procs, threads = _CountingPool(), _CountingPool()
+    monkeypatch.setattr(port_workers, 'WORKERS', procs)
+    monkeypatch.setattr(port_workers, 'bound_threads',
+                        lambda prefix, width: threads)
+    monkeypatch.setattr(pageload, 'decode_page',
+                        lambda path, *a: Image.new('L', (int(path[1:3]), 1)))
+    pool, width = ((procs, port_workers.jp2_decode_width()) if ext == 'jp2'
+                   else (threads, port_workers.decode_width()))
+    n = 20
+    pages = port_recode._pages_ahead(
+        ['p%02d.%s' % (i, ext) for i in range(1, n + 1)], None, 'pillow',
+        None, False, [])
+    sent = []
+    for page in pages:
+        sent.append((page.size[0], pool.submits))
+    assert (procs.submits + threads.submits, pool.submits) == (n, n)
+    assert sent == [(k, min(n, 2 * width + k - 1)) for k in range(1, n + 1)]
+
+
 @pytest.mark.parametrize('ext', ['png', 'jp2'])
 def test_corrupt_page_raises_as_before(tmp_path, ext):
     kw = _book(tmp_path, [ext] * 4)
@@ -162,10 +206,11 @@ def _probe(path, impl):
 
 
 def test_worker_process_holds_no_torch(tmp_path):
-    """Each worker decodes a page, then lists its modules."""
+    """Each worker decodes a page, then lists its modules: twice the
+    pool's width of probes, so that every worker starts."""
     path = _save(_pixels('L'), str(tmp_path / 'p.jp2'))
     futs = [port_workers.WORKERS.submit(eval, _probe(path, 'pillow'))
-            for _ in range(2 * port_workers.decode_width())]
+            for _ in range(2 * port_workers.jp2_decode_width())]
     for fut in futs:
         page, mods = fut.result(120)
         assert page.value[:2] == ('L', (W, H)) and page.pid != os.getpid()
@@ -182,7 +227,7 @@ def test_tpu_decode_worker_holds_no_torch(tmp_path):
     path = _save(_pixels('RGB'), str(tmp_path / 'p.jp2'))
     host = pageload.__name__.replace('pipeline.pageload', 'codecs.jp2host')
     futs = [port_workers.WORKERS.submit(eval, _probe(path, 'tpu'))
-            for _ in range(2 * port_workers.decode_width())]
+            for _ in range(2 * port_workers.jp2_decode_width())]
     for fut in futs:
         page, mods = fut.result(120)
         assert page.value[:2] == ('RGB', (W, H)) and page.pid != os.getpid()

@@ -27,6 +27,7 @@ def test_every_width_from_one_core_count(monkeypatch, n, affinity):
     monkeypatch.setattr(os, 'cpu_count', lambda: n)
     assert workers.cores() == n
     assert workers.decode_width() == min(4, max(1, n // 2))
+    assert workers.jp2_decode_width() == min(8, n)
     assert workers.encode_width() == min(4, max(2, n))
     assert workers.tier1_width() == min(8, n)
     for threads in (None, 0, 1, 2, 5, 16):
@@ -42,8 +43,8 @@ def test_affinity_is_the_core_count(monkeypatch):
                         raising=False)
     monkeypatch.setattr(os, 'cpu_count', lambda: 64)
     assert workers.cores() == 3
-    assert (workers.decode_width(), workers.encode_width(),
-            workers.tier1_width()) == (1, 3, 3)
+    assert (workers.decode_width(), workers.jp2_decode_width(),
+            workers.encode_width(), workers.tier1_width()) == (1, 3, 3, 3)
 
 
 def test_no_affinity_and_no_cpu_count_is_one_core(monkeypatch):
