@@ -11,9 +11,9 @@ the control's output in place of the written book (the mask share that
 differs from the reference's; for Pillow layers the gap between the
 control's layers and the reference's, each encoded by Pillow at the
 configuration's flags; for the in-tree coder, which the reference does
-not have, the control's layers against the reference's uncoded), and
-prints them beside their limits with the judge's verdict
-(``judge.verdict``).  The benchmark's runs never run it.
+not have, the control's layers against the reference's uncoded; under
+``--bw-pdf``, the mask alone), and prints them beside their limits with
+the judge's verdict (``judge.verdict``).  The benchmark's runs never run it.
 """
 
 import argparse
@@ -26,32 +26,48 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+class _Written:
+    """The control's output in the place of a judged book: its masks, and
+    (``images[i]``) page i's layers encoded by Pillow at the
+    configuration's flags, for the Pillow configurations."""
+
+    def __init__(self, batch, low, kws):
+        self.batch, self.low, self.kws = batch, low, kws
+        self.images = self
+
+    def mask(self, i):
+        return self.low[0][self.batch.index(i)]
+
+    def __getitem__(self, i):
+        from portbench import judge
+        k = self.batch.index(i)
+        return (None,) + tuple(
+            _Raw(judge.encode_jpx(self.low[layer][k], self.kws[name]))
+            for layer, name in ((1, 'fg'), (2, 'bg')))
+
+
+class _Raw:
+    def __init__(self, raw):
+        self.raw = raw
+
+
 def readings(book, config, seed, device):
-    """{number: control's reading} of one book."""
+    """{number: control's reading} of one book: ``judge.compare`` with the
+    control's output as the judged book."""
     import numpy as np
     import torch
     from portbench import judge
+    judge.check_config(config)
     _, batch, pages = judge.sample(seed, 1, judge.book_batches(book, config))
     ref = judge.reference_batch(book, config, batch, device)
     low = judge.reference_batch(book, config, batch, device,
                                 ftype=torch.bfloat16, ftype64=np.float32)
-    out = {'mask_mismatch': float((low[0] != ref[0]).mean())}
-    kws = config.get('pillow_layers')
-    if kws is None:
-        for i in pages:
-            k = batch.index(i)
-            for name, layer in (('fg_err', 1), ('bg_err', 2)):
-                err = judge.mean_abs(low[layer][k], ref[layer][k])
-                out[name] = max(out.get(name, 0.0), err)
-    else:
-        for i in pages:
-            k = batch.index(i)
-            for name, layer, kw in (('fg_gap', 1, kws['fg']),
-                                    ('bg_gap', 2, kws['bg'])):
-                raw = judge.encode_jpx(low[layer][k], kw)
-                gap = judge.layer_gap(raw, ref[layer][k], kw)
-                out[name] = max(out.get(name, 0.0), gap)
-    return out
+    written = _Written(batch, low, config.get('pillow_layers'))
+    # the in-tree coder's layers, which the reference cannot encode, are
+    # compared uncoded
+    decoded = {(i, layer): low[layer][batch.index(i)]
+               for i in pages for layer in range(1, len(low))}
+    return judge.compare(config, written, batch, pages, ref, decoded)
 
 
 def main(argv=None, root=ROOT, device=None):

@@ -19,10 +19,13 @@ function of the program by one that breaks it:
     quant_step           the bands quantised with twice the step that
                          the codestream states
     t1_drop_ll           Tier-1 codes no block of the lowest resolution
+    page_inverted        (``--bw-pdf``) each mask-only page written with
+                         its black and white swapped
+    extra_image          (``--bw-pdf``) each mask-only page given its
+                         image twice
 
 The benchmark's runs never run it; ``portbench/tests/test_portbench_run.py``
-plants
-the same faults in a tiny run.
+and ``test_portbench_flags.py`` plant the same faults in a tiny run.
 """
 
 import argparse
@@ -88,6 +91,19 @@ def _tier1():
     return jp2tpu, 'encode_jp2_from_qbands', encode
 
 
+def _bw_page(fault):
+    from archive_pdf_tools_tpu_torch.pdf.builder import DocumentBuilder
+    real = DocumentBuilder.insert_raw_mask_page
+
+    def insert(self, page_idx, mask_enc):
+        if fault == 'page_inverted':
+            return real(self, page_idx, mask_enc._replace(
+                decode=None if mask_enc.decode else (1, 0)))
+        real(self, page_idx, mask_enc)
+        return real(self, page_idx, mask_enc)
+    return DocumentBuilder, 'insert_raw_mask_page', insert
+
+
 FAULTS = {
     'sound': None,
     'mask_altered': lambda: _masks('mask_altered'),
@@ -97,6 +113,8 @@ FAULTS = {
     'b7_zero': lambda: _dwt('b7_zero'),
     'quant_step': lambda: _dwt('quant_step'),
     't1_drop_ll': _tier1,
+    'page_inverted': lambda: _bw_page('page_inverted'),
+    'extra_image': lambda: _bw_page('extra_image'),
 }
 
 

@@ -12,10 +12,14 @@ readings each limit was set from):
                      trailer ID, catalog, PDF/A-3b metadata and output
                      intent, every page with its JBIG2 mask and its fg
                      and bg images at the sizes the flags give, the
-                     sampled pages' fg and bg decoding (Pillow) at them
+                     sampled pages' fg and bg decoding (Pillow) at them;
+                     under ``force_1bit_output`` (``--bw-pdf``) every
+                     page holding one 1-bit JBIG2 image at its size and
+                     nothing else
     text_faults      pages whose invisible words differ from the hOCR's
     mask_mismatch    share of the judged batch's mask pixels that differ
-                     from the reference's mask
+                     from the reference's mask (under ``--bw-pdf``: the
+                     page's ink as a viewer renders it)
     fg_gap, bg_gap   (Pillow JPEG2000 configurations) on the sampled
                      pages, the largest mean absolute difference between
                      the written layer and the reference's layer encoded
@@ -29,6 +33,10 @@ readings each limit was set from):
                      the configuration's ``layer_limits``
 
 The judged book, batch and layer pages are drawn from the run's seed.
+The configuration's flags choose the layout checked and the reference:
+its ``denoise_mask`` names the reference's denoise
+(``reference/denoise_<mode>.py``), and a flag the judge does not model
+(``MODELLED``) makes ``judge`` raise, naming it.
 """
 
 import hashlib
@@ -53,6 +61,34 @@ LIMITS = {
     'bg_gap': 0.0,
 }
 LAYER_PAGES = 2
+# the recode flags the judge models, each with the values it models (None:
+# any); recode() writes no JBIG2 mask unless ``jbig2`` is set
+MODELLED = {
+    'dpi': None, 'bg_downsample': None, 'fg_downsample': None,
+    'jpeg2000_implementation': None, 'batch_pages': None,
+    'denoise_mask': None, 'force_1bit_output': None,
+    'bg_compression_flags': None, 'fg_compression_flags': None,
+    'hq_bg_compression_flags': None, 'hq_fg_compression_flags': None,
+    'jbig2': (True,), 'mask_compression': ('jbig2',),
+}
+
+
+def check_config(config):
+    """Raises ValueError, naming the flag, where the configuration's recode
+    flags ask for what the judge does not model, or naming the mode and
+    the file looked for where its denoise mode has no reference."""
+    rc = config['recode']
+    for flag in sorted(set(rc) | {'jbig2'}):
+        values = MODELLED.get(flag, ())
+        if values is not None and rc.get(flag) not in values:
+            raise ValueError('recode flag %s=%r is not modelled by the judge'
+                             % (flag, rc.get(flag)))
+    mrc.denoiser(mrc.denoise_mode(rc))
+
+
+def bw_pdf(config):
+    """Whether the configuration writes mask-only pages (``--bw-pdf``)."""
+    return bool(config['recode'].get('force_1bit_output'))
 
 
 def sha256(path):
@@ -110,6 +146,7 @@ class BookPdf:
                    and isinstance(pdf.get(i.get('DestOutputProfile')),
                                   pdfread.Stream) for i in intents):
             fault('output intent')
+        self.bw = bw_pdf(config)
         self.pages = pdf.pages()
         if len(self.pages) != book.pages:
             fault('%d pages, not %d' % (len(self.pages), book.pages))
@@ -120,19 +157,33 @@ class BookPdf:
             self.words.append(_words(pdf.content(page)))
 
     def _page_images(self, i, page, book, config):
-        """(mask stream, fg stream, bg stream) of page i, faults noted."""
+        """(mask stream, fg stream, bg stream) of page i, or (page image,)
+        under ``--bw-pdf``; faults noted."""
         pdf = self.pdf
         h, w = book.shapes[i][:2]
         res = pdf.get(page.get('Resources', {}))
         xo = {k: pdf.get(v)
               for k, v in pdf.get(res.get('XObject', {})).items()}
+        images = self._bw_image(i, xo, w, h) if self.bw else \
+            self._mrc_images(i, xo, w, h, config)
+        if images is not None:
+            mb = [float(v) for v in pdf.get(page.get('MediaBox', []))]
+            dpi = book.spec['dpi']
+            if len(mb) != 4 or abs(mb[2] - w * 72.0 / dpi) > 0.01 \
+                    or abs(mb[3] - h * 72.0 / dpi) > 0.01:
+                self.faults.append('page %d: MediaBox %s' % (i, mb))
+        return images
+
+    def _mrc_images(self, i, xo, w, h, config):
+        """(mask, fg, bg): the fg's SMask the JBIG2 mask, the fg and bg JPX
+        layers at the sizes the flags give."""
         fgs = [s for s in xo.values() if 'SMask' in s.dict]
         bgs = [s for s in xo.values() if 'SMask' not in s.dict]
         if len(fgs) != 1 or len(bgs) != 1:
             self.faults.append('page %d: images %s' % (i, sorted(xo)))
             return None
         fg, bg = fgs[0], bgs[0]
-        mask = pdf.get(fg.dict['SMask'])
+        mask = self.pdf.get(fg.dict['SMask'])
         fw, fh = thumb(w, h, config['recode'].get('fg_downsample'))
         bw, bh = thumb(w, h, config['recode'].get('bg_downsample'))
         want = [(mask, 'JBIG2Decode', w, h, 1), (fg, 'JPXDecode', fw, fh, 8),
@@ -144,21 +195,38 @@ class BookPdf:
                 self.faults.append('page %d: %s image %sx%s' % (
                     i, d.get('Filter'), d.get('Width'), d.get('Height')))
                 return None
-        mb = [float(v) for v in pdf.get(page.get('MediaBox', []))]
-        dpi = book.spec['dpi']
-        if len(mb) != 4 or abs(mb[2] - w * 72.0 / dpi) > 0.01 \
-                or abs(mb[3] - h * 72.0 / dpi) > 0.01:
-            self.faults.append('page %d: MediaBox %s' % (i, mb))
         return mask, fg, bg
 
+    def _bw_image(self, i, xo, w, h):
+        """(page image,): one 1-bit JBIG2 image at the page's size, drawn
+        black (DeviceGray, or an image mask), with no soft mask."""
+        if len(xo) != 1:
+            self.faults.append('page %d: images %s' % (i, sorted(xo)))
+            return None
+        s, = xo.values()
+        d = s.dict
+        if (d.get('Subtype'), d.get('Filter'), d.get('Width'),
+                d.get('Height'), d.get('BitsPerComponent', 1)) != \
+                ('Image', 'JBIG2Decode', w, h, 1) or 'SMask' in d \
+                or not (d.get('ImageMask') is True
+                        or d.get('ColorSpace') == 'DeviceGray'):
+            self.faults.append('page %d: %s image %sx%s' % (
+                i, d.get('Filter'), d.get('Width'), d.get('Height')))
+            return None
+        return (s,)
+
     def mask(self, i):
-        """Page i's mask as bool (H, W), True = ink."""
+        """Page i's mask as bool (H, W), True = ink: where the mask layer
+        shows the fg, or under ``--bw-pdf`` where the page is black."""
         s = self.images[i][0]
         bits = jbig2.decode(s.raw, s.dict['Width'], s.dict['Height'])
-        ink = bits == 0
+        # JBIG2Decode gives the sample 1 where the JBIG2 bit is 0 (white)
+        sample = bits == 0
         if s.dict.get('Decode') == [1, 0]:
-            ink = ~ink
-        return ink
+            sample = ~sample
+        # a soft mask shows the fg where the sample is 1; a DeviceGray
+        # image is black, and an image mask paints, where it is 0
+        return ~sample if self.bw else sample
 
 
 def decode_jpx(raw):
@@ -197,14 +265,18 @@ def load_pages(book, idx):
 
 
 def reference_batch(book, config, batch, device, ftype=None, ftype64=None):
-    """The reference's (mask, fg, bg) of one batch, on ``device``."""
+    """The reference's (mask, fg, bg) of one batch, on ``device``; (mask,)
+    under ``--bw-pdf``."""
     import torch
     ftype = ftype or torch.float32
     ftype64 = ftype64 or np.float64
     pages = torch.from_numpy(load_pages(book, batch)).to(device)
-    mask = mrc.masks(pages, [book.boxes[i] for i in batch],
-                     book.spec['dpi'], ftype, ftype64)
     rc = config['recode']
+    mask = mrc.masks(pages, [book.boxes[i] for i in batch],
+                     book.spec['dpi'], ftype, ftype64,
+                     denoise_mask=mrc.denoise_mode(rc))
+    if bw_pdf(config):
+        return (mask.cpu().numpy(),)
     fg, bg = mrc.layers(mask, pages, rc.get('bg_downsample'),
                         rc.get('fg_downsample'), ftype)
     return mask.cpu().numpy(), fg.cpu().numpy(), bg.cpu().numpy()
@@ -222,8 +294,9 @@ def compare(config, judged_pdf, batch, pages, ref, decoded):
     """mask_mismatch, and fg_gap and bg_gap (Pillow layers) or fg_err and
     bg_err (the in-tree coder) of one judged batch against the
     reference's (mask, fg, bg); ``decoded`` holds the sampled pages'
-    written layers, decoded, by (page, 1 for fg or 2 for bg)."""
-    rmask, rfg, rbg = ref
+    written layers, decoded, by (page, 1 for fg or 2 for bg).  Under
+    ``--bw-pdf``, mask_mismatch alone."""
+    rmask = ref[0]
     diff = 0
     for k, i in enumerate(batch):
         try:
@@ -231,6 +304,8 @@ def compare(config, judged_pdf, batch, pages, ref, decoded):
         except ValueError:      # a mask stream the decoder cannot read
             diff += rmask[k].size
     out = {'mask_mismatch': diff / float(rmask.size)}
+    if bw_pdf(config):
+        return out
     kws = config.get('pillow_layers')
     if kws is None:
         for i in pages:
@@ -243,8 +318,8 @@ def compare(config, judged_pdf, batch, pages, ref, decoded):
         for i in pages:
             k = batch.index(i)
             _, fg, bg = judged_pdf.images[i]
-            jobs.append(('fg_gap', fg.raw, rfg[k], kws['fg']))
-            jobs.append(('bg_gap', bg.raw, rbg[k], kws['bg']))
+            jobs.append(('fg_gap', fg.raw, ref[1][k], kws['fg']))
+            jobs.append(('bg_gap', bg.raw, ref[2][k], kws['bg']))
         with ThreadPoolExecutor(max_workers=4) as ex:
             gaps = list(ex.map(lambda j: layer_gap(*j[1:]), jobs))
         for (name, *_), g in zip(jobs, gaps):
@@ -262,7 +337,10 @@ def book_batches(book, config):
 
 def judge(book, config, pdf_paths, warm_sha, seed, device):
     """(checks {name: (value, limit)}, correct) for a run whose window
-    wrote ``pdf_paths``; ``warm_sha`` is the warm-up book's digest."""
+    wrote ``pdf_paths``; ``warm_sha`` is the warm-up book's digest.
+    Raises ValueError for a configuration it does not model
+    (``check_config``)."""
+    check_config(config)
     values = {'differing_books': sum(sha256(p) != warm_sha
                                      for p in pdf_paths)}
     bi, batch, pages = sample(seed, len(pdf_paths), book_batches(book, config))

@@ -4,18 +4,24 @@ Frozen copies of the port's plain versions of its kernels (the CPU
 oracles of ``csrc/*.cu``; ``ops/window.py``, ``ops/sauvola.py``,
 ``ops/sigma.py``, ``ops/sigma_np.py``, the plain blur of
 ``ops/threshold_cuda.py``, the line loop of ``ops/lines_cuda.py``, the
-paste of ``ops/paste_cuda.py``, ``ops/denoise.py``, ``ops/optimise.py``,
+paste of ``ops/paste_cuda.py``, ``ops/optimise.py``,
 ``ops/resize.py``) and of the host logic around them (the line filter of
 ``mrc/hocr_prep.py``, the blur taps and ``select_lines`` of
 ``mrc/decompose.py``), held here so that a change to the port never
 moves the yardstick.  Nothing here imports the port.
 
 ``ftype`` is the precision of every float32 stage (noise estimate, blur
-taps and blur, the Sauvola test, the layer resize) and ``ftype64`` that
-of the float64 line-sigma estimate: the control passes
+taps and blur, the Sauvola test, the layer resize, a float denoise) and
+``ftype64`` that of the float64 line-sigma estimate: the control passes
 ``torch.bfloat16`` and ``np.float32``.
+
+The mask's last stage is the denoise that the configuration's
+``denoise_mask`` names, found by file name: ``denoise_<mode>.py`` beside
+this file, whose ``denoise(mask, ftype=torch.float32)`` returns the
+denoised bool (B, H, W) mask on the mask's device.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -27,8 +33,6 @@ LINE_K = 0.1
 SAUVOLA_R = 128.0
 FG_N = 3
 BG_N = 10
-DESPECKLE_MINCNT = 4
-DESPECKLE_N = 2
 
 _DB2_HI = [-0.48296291314469025, 0.836516303737469,
            -0.22414386804185735, -0.12940952255092145]
@@ -244,48 +248,6 @@ def select_line(m_t, m_i, ftype64):
     return 0
 
 
-# ---------------------------------------------------------- despeckle
-
-def despeckle(mask, mincnt=DESPECKLE_MINCNT, n=DESPECKLE_N):
-    """Sequential despeckle: in row-major order a set interior pixel
-    survives iff its (2n+1)^2 window in the partly updated mask holds at
-    least ``mincnt`` other set pixels.  Rows are a loop; within a row the
-    dependence on the last n produced bits is a 2^n-state machine
-    evaluated by a prefix scan of transition maps."""
-    nstates = 1 << n
-    b, h, w = mask.shape
-    dev = mask.device
-    mi = mask.to(torch.int64)
-    bot = box_sum_2d(mi, (1, n + 1), (-n, n + 1))
-    cur = sliding_sum(mi, 1, n + 1, -1)
-    cols = torch.arange(w, device=dev)
-    col_border = (cols < n) | (cols >= w - n)
-    states = torch.arange(nstates, device=dev)
-    pc = torch.tensor([bin(s).count('1') for s in range(nstates)], device=dev)
-    shifted = (states << 1) & (nstates - 1)
-    out = torch.empty_like(mi)
-    colsum = torch.zeros((b, w), dtype=torch.int64, device=dev)
-    for y in range(h):
-        m_row = mi[:, y]
-        top = sliding_sum(colsum, -n, n + 1, -1)
-        tau = mincnt - top - bot[:, y] - cur[:, y]
-        forced = (m_row == 0) | col_border | (y < n) | (y >= h - n)
-        bit = torch.where(forced[..., None], m_row[..., None],
-                          (pc >= tau[..., None]).to(torch.int64))
-        maps = shifted | bit
-        d = 1
-        while d < w:
-            maps = torch.cat([maps[:, :d],
-                              maps[:, d:].gather(2, maps[:, :-d])], dim=1)
-            d *= 2
-        row = maps[..., 0] & 1
-        out[:, y] = row
-        colsum += row
-        if y >= n:
-            colsum -= out[:, y - n]
-    return out.to(torch.bool)
-
-
 # ---------------------------------------------------------- layer fills
 
 def optimise(mask, img, n):
@@ -427,13 +389,37 @@ def batches(modes, shapes, batch_pages=8):
     return out
 
 
-def masks(pages, page_boxes, dpi, ftype=torch.float32, ftype64=np.float64):
+def denoise_mode(recode_flags):
+    """The ``--denoise-mask`` mode a configuration's flags run: recode()'s
+    ``fast`` where they name none, ``none`` for None."""
+    mode = recode_flags.get('denoise_mask', 'fast')
+    return 'none' if mode is None else mode
+
+
+def denoiser(mode):
+    """``denoise`` of ``denoise_<mode>.py`` beside this file; ValueError,
+    naming the mode and the file, where there is no such file."""
+    name = '%s.denoise_%s' % (__package__, mode)
+    try:
+        return importlib.import_module(name).denoise
+    except ModuleNotFoundError as e:
+        if e.name is None or not name.startswith(e.name):
+            raise      # a module that the mode's file imports is missing
+        raise ValueError('denoise_mask %r has no reference: no '
+                         'portbench/reference/denoise_%s.py'
+                         % (mode, mode)) from None
+
+
+def masks(pages, page_boxes, dpi, ftype=torch.float32, ftype64=np.float64,
+          denoise_mask='fast'):
     """The mask of each page of one batch: uint8 (B, H, W) gray or
     (B, H, W, 3) RGB on its device, and each page's line boxes
     (x0, y0, x1, y1).  The global mask (blur + Sauvola, k=0.34), then
     each line's selected crop (Sauvola k=0.1 of the crop or of its
     inverse) pasted in document order, the last line winning an overlap,
-    OR-ed with the global mask, then despeckled.  Returns bool (B, H, W)."""
+    OR-ed with the global mask, then denoised in mode ``denoise_mask``
+    (``denoiser``).  Returns bool (B, H, W)."""
+    denoise = denoiser(denoise_mask)
     gray = gray_601(pages) if pages.dim() == 4 else pages
     b, h, w = gray.shape
     window = sauvola_window(dpi)
@@ -450,7 +436,7 @@ def masks(pages, page_boxes, dpi, ftype=torch.float32, ftype64=np.float64):
             if sel:
                 pasted[t:bo, l:r] = m_t if sel == 1 else m_i
         mask[p] |= pasted
-    return despeckle(mask)
+    return denoise(mask, ftype=ftype)
 
 
 def layers(mask, pages, bg_downsample=None, fg_downsample=None,

@@ -8,6 +8,9 @@
                     nothing to read (the metric is then left out); its
                     unit, direction, source, layer and what it moves are
                     its ``BENCHMARK.json`` entry's
+    denoise mode    ``portbench/reference/denoise_<mode>.py``, the
+                    reference's last mask stage for a configuration's
+                    ``denoise_mask`` (``reference/mrc.py`` ``denoiser``)
 
 A cell is one ``workloads`` entry; adding one, or a metric, is adding
 files and entries, never editing a file that is there.
@@ -46,12 +49,23 @@ class Benchmark:
         return generator.load(os.path.join(self.here, 'traffic',
                                            name + '.json'))
 
-    def metrics(self, trace):
+    def metrics(self, trace, cell=None):
         """{name: (entry, reader)} of the metrics a run reads: the
         end-to-end metrics in a ``--trace 0`` run, the per-layer metrics
-        in a ``--trace 1`` run."""
+        in a ``--trace 1`` run; given a cell, only those it reports."""
         key = 'per_layer' if trace else 'end_to_end'
-        return {m['name']: (m, self.reader(m['name'])) for m in self.spec[key]}
+        return {m['name']: (m, self.reader(m['name'])) for m in self.spec[key]
+                if cell is None or cell in self.cells(m)}
+
+    def cells(self, entry):
+        """The cells that report a metric: its ``workloads``; without
+        them, those of the end-to-end metric it moves, or every cell."""
+        if 'workloads' in entry:
+            return entry['workloads']
+        for m in self.spec['end_to_end']:
+            if m['name'] == entry.get('moves'):
+                return self.cells(m)
+        return [w['name'] for w in self.spec['workloads']]
 
     def reader(self, name):
         path = os.path.join(self.here, 'metrics', name + '.py')

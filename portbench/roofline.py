@@ -10,7 +10,7 @@ algorithm, counted with running window sums (see ``OPS``).
 
 import math
 
-from .reference.mrc import thumbnail_size
+from .reference.mrc import denoise_mode, thumbnail_size
 
 # NVIDIA H100 SXM (data sheet): HBM3 bandwidth, and float32 outside the
 # tensor cores (every stage here is scalar float32 or integer work)
@@ -50,20 +50,27 @@ def thumb(w, h, factor):
 
 
 def page_work(shape, boxes, noise_sigma, recode_flags):
-    """(bytes, operations) one page of ``shape`` needs on the card."""
+    """(bytes, operations) one page of ``shape`` needs on the card: the
+    mask (the despeckle under ``--denoise-mask fast`` only), then the
+    layers, which ``--bw-pdf`` (``force_1bit_output``) does not make."""
     h, w = shape[:2]
     c = shape[2] if len(shape) == 3 else 1
     px = h * w
-    fw, fh = thumb(w, h, recode_flags.get('fg_downsample'))
-    bw, bh = thumb(w, h, recode_flags.get('bg_downsample'))
-    layers = (fw * fh + bw * bh) * c
-    nbytes = px * c + h * -(-w // 8) + layers
     r = blur_radius(noise_sigma)
+    fast = denoise_mode(recode_flags) == 'fast'
+    nbytes = px * c + h * -(-w // 8)
     ops = px * (OPS['gray'] * (c == 3) + 4 * (2 * r + 1) + OPS['sauvola']
-                + OPS['paste'] + OPS['despeckle'] + 2 * OPS['fill'] * c)
+                + OPS['paste'] + OPS['despeckle'] * fast)
     ops += (h // 2) * (w // 2) * OPS['noise']
     area = sum((x1 - x0) * (y1 - y0) for x0, y0, x1, y1 in boxes)
     ops += 2 * area * OPS['sauvola']
+    if recode_flags.get('force_1bit_output'):
+        return nbytes, ops
+    fw, fh = thumb(w, h, recode_flags.get('fg_downsample'))
+    bw, bh = thumb(w, h, recode_flags.get('bg_downsample'))
+    layers = (fw * fh + bw * bh) * c
+    nbytes += layers
+    ops += px * 2 * OPS['fill'] * c
     for (lw, lh), f in ((thumb(w, h, recode_flags.get('fg_downsample')),
                          recode_flags.get('fg_downsample')),
                         ((bw, bh), recode_flags.get('bg_downsample'))):

@@ -19,8 +19,10 @@ BAND_BYTES = 4      # an int32 quantised coefficient
 
 def page_work(shape, recode_flags):
     """(bytes, operations) of one page's fg and bg transforms; (0, 0)
-    where the configuration does not run the in-tree coder."""
-    if recode_flags.get('jpeg2000_implementation') != 'tpu':
+    where the configuration does not run the in-tree coder or makes no
+    layers (``--bw-pdf``)."""
+    if recode_flags.get('jpeg2000_implementation') != 'tpu' \
+            or recode_flags.get('force_1bit_output'):
         return 0, 0
     h, w = shape[:2]
     c = shape[2] if len(shape) == 3 else 1

@@ -150,7 +150,7 @@ def run_cell(workload, seed, seconds, trace, root=ROOT, device=None,
     wl = bench.workload(workload)
     config = bench.config(wl['config'])
     spec = bench.traffic(wl['traffic'])
-    metrics = bench.metrics(trace)
+    metrics = bench.metrics(trace, wl['name'])
     cache_env(root)
     tmp = tempfile.mkdtemp(prefix='portbench-')
     maker = BookMaker(spec, seed, os.path.join(tmp, 'book'),

@@ -29,14 +29,17 @@ def copy_benchmark(dst):
     return dst
 
 
-def add_cell(root, name, config, traffic, dpi=100, **keys):
+def add_cell(root, name, config, traffic, dpi=100, recode=None, like=None,
+             **keys):
     """A tiny cell added as files and manifest entries: config ``name``
-    (``config``'s flags at ``dpi``, its other ``keys`` replaced), traffic
-    ``name`` and workload ``name.book``."""
+    (``config``'s flags at ``dpi``, those in ``recode`` replaced, its other
+    ``keys`` replaced), traffic ``name`` and workload ``name.book``, listed
+    in each metric's ``workloads`` that lists the cell ``like``."""
     with open(os.path.join(ROOT, 'portbench', 'configs',
                            config + '.json')) as fp:
         c = json.load(fp)
     c['recode']['dpi'] = dpi
+    c['recode'].update(recode or {})
     c.update(keys)
     with open(os.path.join(root, 'portbench', 'configs',
                            name + '.json'), 'w') as fp:
@@ -52,6 +55,9 @@ def add_cell(root, name, config, traffic, dpi=100, **keys):
                              'reduced': [], 'why': 'test'})
     bench['workloads'].append({'name': name + '.book', 'config': name,
                                'traffic': name, 'chips': 1, 'why': 'test'})
+    for m in bench['end_to_end'] + bench['per_layer']:
+        if like in m.get('workloads', ()):
+            m['workloads'].append(name + '.book')
     with open(path, 'w') as fp:
         json.dump(bench, fp)
     return name + '.book'
@@ -66,8 +72,9 @@ def tiny_root(tmp_path):
     fg_err 9.7-10.4 and bg_err 10.2-12.8, and the planted layer faults
     fg_err 42.7 or more (seeds 11-13)."""
     root = copy_benchmark(str(tmp_path / 'checkout'))
-    add_cell(root, 'tpil', 'pillow_ds3', TINY_TRAFFIC)
-    add_cell(root, 'ttpu', 'jtpu', TTPU_TRAFFIC,
+    add_cell(root, 'tpil', 'pillow_ds3', TINY_TRAFFIC,
+             like='pillow_ds3.jp2book')
+    add_cell(root, 'ttpu', 'jtpu', TTPU_TRAFFIC, like='jtpu.pngbook',
              layer_limits={'fg_err': 20.0, 'bg_err': 18.0})
     return root
 

@@ -90,7 +90,9 @@ def test_encode_offload_pct_none(monkeypatch, recs):
 def test_encode_offload_pct_entry():
     with open(os.path.join(ROOT, 'BENCHMARK.json')) as fp:
         spec = json.load(fp)
-    assert spec['per_layer'][-1] == {
+    entry, = [m for m in spec['per_layer']
+              if m['name'] == 'encode_offload_pct']
+    assert entry == {
         'name': 'encode_offload_pct', 'unit': '%', 'better': 'higher',
         'source': 'program_span', 'moves': 'pages_per_s',
         'layer': 'host encoders (codecs/, native/)',

@@ -44,7 +44,8 @@ def test_reference_imports_nothing_of_the_program():
     body = ('import portbench.judge, portbench.control, portbench.trace, '
             'portbench.roofline\n'
             'import portbench.reference.mrc, portbench.reference.pdfread, '
-            'portbench.reference.jbig2')
+            'portbench.reference.jbig2, portbench.reference.denoise_fast, '
+            'portbench.reference.denoise_none')
     names = FORBIDDEN + ('archive_pdf_tools_tpu_torch',)
     assert _probe(body, names) == '[]'
 

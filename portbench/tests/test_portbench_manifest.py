@@ -87,7 +87,10 @@ def test_names_and_units(bench):
 
 def test_every_cell_reports(bench):
     """Each cell: setup_s, another end-to-end metric, a per-layer metric,
-    and the end-to-end metric each of its per-layer metrics moves."""
+    and the end-to-end metric each of its per-layer metrics moves.  A
+    metric's ``workloads`` lists cells that exist; a per-layer metric
+    without the list is reported by the cells of the metric it moves, an
+    end-to-end metric without it by every cell."""
     spec = bench.spec
     used = {w['config'] for w in spec['workloads']}
     assert used == {c['name'] for c in spec['configs']}
@@ -95,12 +98,37 @@ def test_every_cell_reports(bench):
     assert len(pairs) == len(set(pairs))
     four = sum(w['chips'] == 4 for w in spec['workloads'])
     assert four <= max(1, len(spec['workloads']) // 4)
+    cells = [w['name'] for w in spec['workloads']]
     e2e = bench.metrics(False)
     layer = bench.metrics(True)
     assert 'setup_s' in e2e and len(e2e) >= 2 and layer
+
+    def reported(entry):
+        listed = bench.cells(entry)
+        assert listed and set(listed) <= set(cells), entry['name']
+        assert len(listed) == len(set(listed)), entry['name']
+        return set(listed)
     for name, (entry, _) in layer.items():
         assert entry['moves'] in e2e
-        assert 'workloads' not in entry     # every cell reports each
+        assert reported(entry) <= reported(e2e[entry['moves']][0]), name
+    assert 'workloads' not in e2e['setup_s'][0]
+    for cell in cells:
+        assert sum(cell in reported(e) for e, _ in e2e.values()) >= 2
+        assert any(cell in reported(e) for e, _ in layer.values())
+
+
+def test_rate_end_to_end_or_per_layer(bench):
+    """Each cell reports the window's rate once: end to end where its runs
+    hold ``pages_per_s``'s bound, per layer in the others; and a run reads
+    just the metrics its cell reports."""
+    for w in bench.spec['workloads']:
+        e2e = bench.metrics(False, w['name'])
+        layer = bench.metrics(True, w['name'])
+        assert ('pages_per_s' in e2e) != ('traced_pages_per_s' in layer)
+        assert {'setup_s', 'bytes_per_page'} <= set(e2e)
+        for key, got in (('end_to_end', e2e), ('per_layer', layer)):
+            assert set(got) == {m['name'] for m in bench.spec[key]
+                                if w['name'] in bench.cells(m)}
 
 
 def test_files_and_readers(bench):

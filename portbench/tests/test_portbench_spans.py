@@ -141,10 +141,14 @@ def test_none_without_the_store(readers, monkeypatch):
 
 
 def test_entries_name_existing_readers():
+    """Each reader's entry is there once, wherever it stands in the list,
+    and reads in every cell."""
     with open(os.path.join(ROOT, 'BENCHMARK.json')) as fp:
         spec = json.load(fp)
+    names = [m['name'] for m in spec['per_layer']]
     entries = {m['name']: m for m in spec['per_layer']}
     for name in NAMES:
+        assert names.count(name) == 1
         entry = entries[name]
         assert entry['source'] == 'program_span'
         assert entry['moves'] == 'pages_per_s'
@@ -152,4 +156,3 @@ def test_entries_name_existing_readers():
         assert 'workloads' not in entry
         assert os.path.exists(os.path.join(ROOT, 'portbench', 'metrics',
                                            name + '.py'))
-    assert list(entries)[-len(NAMES):] == list(NAMES)

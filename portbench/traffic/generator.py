@@ -11,8 +11,11 @@ A traffic file (``traffic/<name>.json``) holds only data:
     noise_sigma  sensor noise of ``scan.synth_scan``
     format       ``png`` (lossless) or ``jp2`` (Pillow's irreversible
                  JPEG2000 at ``jp2_rate``:1)
+    words        (optional, default true) false: the hOCR holds every
+                 page and no line (a book whose OCR found no words); the
+                 pixels are the same
 
-Each page has one hOCR word a text line.  Every run's book holds the
+Each page has one hOCR word a text line, unless ``words`` is false.  Every run's book holds the
 same pages: page variant ``v`` is drawn from ``page_set`` and ``v``.  The
 run's seed puts the gray pages in an order of its own (the RGB pages
 keep their places), so two runs with one seed make the same files, and
@@ -49,6 +52,8 @@ def load(path):
         raise ValueError('%s: format must be one of %s' % (path, FORMATS))
     if spec['format'] == 'jp2' and 'jp2_rate' not in spec:
         raise ValueError('%s: a jp2 book needs jp2_rate' % path)
+    if not isinstance(spec.get('words', True), bool):
+        raise ValueError('%s: words must be true or false' % path)
     return spec
 
 
@@ -85,6 +90,8 @@ def make_variant(spec, variant):
         img = np.stack([img, (img * 0.93).astype(np.uint8),
                         (img * 0.82).astype(np.uint8)], axis=-1)
     boxes = [tuple(line['bbox']) for para in wd for line in para['lines']]
+    if not spec.get('words', True):
+        boxes = []
     return img, boxes
 
 
