@@ -28,19 +28,20 @@ K_F32 = float(np.float32(K))
 INV_K_F32 = float(np.float32(1.0 / K))
 
 
-def _fma(c, s, d):
+def _fma(c, s, d, read=bool):
     """float32 ``fma(c, s, d)`` with one rounding.  ``c * s`` is exact in
     float64 (24 x 24 bits); the float64 sum with ``d`` is rounded to odd
     (one ulp toward the exact sum when TwoSum finds an error and the
     rounded sum's last bit is even), so the cast to float32 rounds the
-    exact result once."""
+    exact result once.  ``read`` brings the device's flag of whether any
+    sum needs that ulp to the host (a caller times it)."""
     p = s.to(torch.float64) * c
     d = d.to(torch.float64)
     t = p + d
     bb = t - p
     err = (p - (t - bb)) + (d - bb)
     fix = (err != 0) & ((t.view(torch.int64) & 1) == 0)
-    if bool(fix.any()):
+    if read(fix.any()):
         toward = torch.where(err > 0, torch.inf, -torch.inf).to(t.dtype)
         t = torch.where(fix, torch.nextafter(t, toward), t)
     return t.to(torch.float32)

@@ -14,10 +14,16 @@ device.  The split gradients ``d`` and the Bregman terms ``b`` are kept
 as two planes each (y and x) rather than a trailing axis of 2.  Torch
 ops on the tensor's device; the JAX package runs these as XLA ops, not a
 Pallas kernel.
+
+Spans (``utils/spans.py``): ``tv_denoise`` around a call's iterations,
+and ``tv_sync`` around each of the host's reads of the device that
+``_fma`` makes (three an iteration), so that a trace counts the TV's
+synchronisations and the host's wait on them.
 """
 
 import torch
 
+from ..utils.spans import span
 from .dwt97 import _fma
 
 
@@ -33,6 +39,12 @@ def _prev(a, dim):
     return torch.cat([a.narrow(dim, 0, 1), a.narrow(dim, 0, n - 1)], dim)
 
 
+def _read(flag):
+    """A device flag brought to the host, as the span ``tv_sync``."""
+    with span('tv_sync'):
+        return bool(flag)
+
+
 def denoise_tv_bregman(img, weight=1.0, max_iter=100):
     """img: float (..., H, W) in [0, 1]-ish -> float32 of the same shape."""
     f = img.to(torch.float32)
@@ -46,23 +58,26 @@ def denoise_tv_bregman(img, weight=1.0, max_iter=100):
     dx = torch.zeros_like(f)
     by = torch.zeros_like(f)
     bx = torch.zeros_like(f)
-    for _ in range(max_iter):
-        # u-update (Jacobi step of the Euler-Lagrange system)
-        n4 = _next(u, -2) + _prev(u, -2) + _next(u, -1) + _prev(u, -1)
-        py, px = dy - by, dx - bx
-        div = (py - _prev(py, -2)) + (px - _prev(px, -1))
-        u = (mu * f + lam * (n4 + div)) / den
-        # shrinkage (isotropic)
-        gy = _next(u, -2) - u + by
-        gx = _next(u, -1) - u + bx
-        # float32 sqrt, correctly rounded (torch's own float32 sqrt on
-        # the CPU is not)
-        norm = torch.sqrt(_fma(gx, gx, gy * gy).to(torch.float64)).to(
-            torch.float32)
-        shrink = (torch.clamp(norm - 1.0 / lam, min=0.0)
-                  / torch.clamp(norm, min=1e-12))
-        dy, dx = gy * shrink, gx * shrink
-        by, bx = _fma(-gy, shrink, gy), _fma(-gx, shrink, gx)
+    with span('tv_denoise'):
+        for _ in range(max_iter):
+            # u-update (Jacobi step of the Euler-Lagrange system)
+            n4 = _next(u, -2) + _prev(u, -2) + _next(u, -1) + _prev(u, -1)
+            py, px = dy - by, dx - bx
+            div = (py - _prev(py, -2)) + (px - _prev(px, -1))
+            u = (mu * f + lam * (n4 + div)) / den
+            # shrinkage (isotropic)
+            gy = _next(u, -2) - u + by
+            gx = _next(u, -1) - u + bx
+            # float32 sqrt, correctly rounded (torch's own float32 sqrt
+            # on the CPU is not)
+            norm = torch.sqrt(
+                _fma(gx, gx, gy * gy, _read).to(torch.float64)).to(
+                    torch.float32)
+            shrink = (torch.clamp(norm - 1.0 / lam, min=0.0)
+                      / torch.clamp(norm, min=1e-12))
+            dy, dx = gy * shrink, gx * shrink
+            by = _fma(-gy, shrink, gy, _read)
+            bx = _fma(-gx, shrink, gx, _read)
     return u
 
 

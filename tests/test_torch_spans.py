@@ -341,3 +341,65 @@ def test_profile_dir_trace_holds_every_thread(tmp_path):
     for name in ENCODE_SPANS:
         assert tids[name] and not tids[name] & main
         assert not tids[name] & (tids['image_load'] | tids['page_fetch'])
+
+
+def _tv_batch():
+    """Two small worded pages and their hOCR word data, as
+    ``decompose_masks`` takes them."""
+    import io
+    imgs, pages = [], []
+    for i in range(2):
+        img, words = render_book_page(48, 64, n_lines=3, seed=i, noise=8)
+        imgs.append(img)
+        pages.append(words_to_hocr_page(words, 48, 64, page_no=i, dpi=100))
+    doc = io.BytesIO((HOCR_TEMPLATE % '\n'.join(pages)).encode())
+    return imgs, [port_recode.hocr_page_to_word_data(p)
+                  for p in port_recode.hocr_page_iterator(doc)]
+
+
+def test_tv_spans(monkeypatch):
+    """Under a profiler session a ``--denoise-mask bregman`` batch stores
+    one ``tv_denoise`` record, inside the ``denoise`` stage, and one
+    ``tv_sync`` record inside it for each host read of the device that
+    the TV makes (one a call of ``_fma``, three an iteration); without a
+    session it stores nothing, and the mask is the same."""
+    from archive_pdf_tools_tpu_torch.mrc.api import decompose_masks
+    from archive_pdf_tools_tpu_torch.ops import tv
+    imgs, wds = _tv_batch()
+    reads = []
+    real = tv._fma
+
+    def counted(*args, **kw):
+        reads.append(1)
+        return real(*args, **kw)
+    monkeypatch.setattr(tv, '_fma', counted)
+    off, _ = decompose_masks(imgs, wds, dpi=100, denoise_mask='bregman',
+                             device='cpu')
+    assert spans.collected() == [] and len(reads) == 300
+    del reads[:]
+    with _cpu_profile():
+        on, _ = decompose_masks(imgs, wds, dpi=100, denoise_mask='bregman',
+                                device='cpu')
+    recs = spans.collected()
+    by_id = {r.id: r for r in recs}
+    tvs = [r for r in recs if r.name == 'tv_denoise']
+    syncs = [r for r in recs if r.name == 'tv_sync']
+    assert len(tvs) == 1 and by_id[tvs[0].parent].name == 'denoise'
+    assert len(syncs) == len(reads) == 300
+    assert all(r.parent == tvs[0].id for r in syncs)
+    assert all(tvs[0].start_ns <= r.start_ns <= r.end_ns <= tvs[0].end_ns
+               for r in syncs)
+    assert torch.equal(on, off)
+
+
+def test_tv_read_keeps_the_fma():
+    """``_fma`` gives the same float32 bits with the TV's timed read as
+    with the plain one that B7's CPU path keeps."""
+    from archive_pdf_tools_tpu_torch.ops import dwt97, tv
+    g = torch.Generator().manual_seed(11)
+    a, b, c = (torch.randn(4096, generator=g) for _ in range(3))
+    with _cpu_profile():
+        timed = dwt97._fma(a, b, c, tv._read)
+    assert torch.equal(timed.view(torch.int32),
+                       dwt97._fma(a, b, c).view(torch.int32))
+    assert [r.name for r in spans.collected()] == ['tv_sync']
